@@ -1,0 +1,55 @@
+"""Command line entry of the port: mode dispatch (src/main.cpp:41-106).
+
+Usage: python -m metacache_tpu_torch.cli <mode> ... [-device cuda|cpu]
+
+`build` and `query` run on the port (query on -device, default cuda);
+`help` and `annotate` are host-only and dispatch to the JAX package's
+JAX-free modules. The other modes are not yet ported.
+"""
+from __future__ import annotations
+
+import sys
+
+from metacache_tpu.utils import ArgsParser
+
+MODES = ("help", "build", "query", "annotate")
+NOT_YET_PORTED = ("modify", "info", "merge")
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = ArgsParser(argv)
+    if not args.positionals:
+        print("metacache_tpu_torch — metagenomic classifier (PyTorch/CUDA)\n"
+              f"available modes: {', '.join(MODES)}\n"
+              "usage: python -m metacache_tpu_torch.cli <mode> ... "
+              "[-device cuda|cpu]", file=sys.stderr)
+        return 1
+    mode = args.positionals[0]
+    try:
+        if mode == "build":
+            from .modes.build import main_mode_build
+            return main_mode_build(args)
+        if mode == "query":
+            from .modes.query import main_mode_query
+            return main_mode_query(args)
+        if mode == "help":
+            from metacache_tpu.modes.help import main_mode_help
+            return main_mode_help(args)
+        if mode == "annotate":
+            from metacache_tpu.modes.annotate import main_mode_annotate
+            return main_mode_annotate(args)
+    except NotImplementedError as e:
+        print(f"not yet ported: {e}", file=sys.stderr)
+        return 1
+    if mode in NOT_YET_PORTED:
+        print(f"mode '{mode}' is not yet ported to metacache_tpu_torch; "
+              "use python -m metacache_tpu.cli", file=sys.stderr)
+        return 1
+    print(f"unknown mode '{mode}'; available: {', '.join(MODES)}",
+          file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
