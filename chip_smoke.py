@@ -5,42 +5,78 @@
 
 Phases, each printed on its own line; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
-     versions.
-  2. kernel vs plain: builds the CUDA sketch kernel from
-     metacache_tpu_torch/csrc/sketch.cu and holds it bit for bit against
-     its plain PyTorch version on the card, at the main path's shapes and
-     on edge cases; times both with CUDA events.
+     versions. Both kernel libraries are built at once (one nvcc per
+     source, in parallel).
+  2. kernels vs plain: the CUDA sketch kernel (csrc/sketch.cu) and the
+     CUDA gather kernel (csrc/gather.cu) held bit for bit against their
+     plain PyTorch versions on the card, at the main paths' shapes and on
+     edge cases; both versions timed with CUDA events.
   3. config-2 (BASELINE config-2, the RefSeq-viral analogue of bench.py:
      15,000 genomes, 1,048,576 single-end 100 bp reads): the port's CLI
      builds the database, then queries every read on -device cuda. Checks
-     that the sketch kernel ran on that path and that the classified
-     fraction is within 0.001 of the 0.9719 the JAX package recorded on
-     the same seeded world.
-  4. the first 16,384 reads again on -device cpu: mapping lines equal.
-  5. the realistic paired-end world of bench.py (96 Mbp, 262,144 pairs,
+     that both kernels ran on that path and that the classified fraction
+     is within 0.001 of the 0.9719 the JAX package recorded on the same
+     seeded world; the first 16,384 reads again on -device cpu give the
+     same mapping lines.
+  4. the realistic paired-end world of bench.py (96 Mbp, 262,144 pairs,
      a repeat at the 254-location cap): GPU query, and the first 8,192
      pairs on the CPU give the same mapping lines.
-Then one JSON line per kernel summary and, last, the device JSON line.
+  5. config-2 evaluation: every read with -exclude species -precision; no
+     read is classified as its own species, and the first 16,384 lines
+     equal -device cpu's.
+  6. -hits-per-seq -tophits (16,384 reads) and -align (4,096 reads):
+     -device cuda writes the bytes -device cpu writes.
+  7. modify: the first 14,500 genomes built natively, the last 500 added
+     by `modify` on cuda and on cpu: equal databases, equal to the
+     one-shot build's feature table; all reads queried against it.
+  8. merge: 131,072 reads queried against the two partial databases,
+     merged on cuda and on cpu: equal outputs.
+  9. interactive: two lines on stdin, the second changing only -hitmin:
+     the engine is reused and the first line's output equals the
+     non-interactive run's.
+ 10. info: statistics and `rank species`.
+Each path is driven with every kernel's launch count set to 0 just
+before it and read just after. Then the kernels' JSON line and, last,
+the device JSON line.
 
-Worlds, databases and outputs go to build/smoke/ (and the kernel library
-to build/metacache_tpu_torch/) inside the checkout. Imports no JAX.
+Worlds, databases and outputs go to build/smoke/ (and the kernel
+libraries to build/metacache_tpu_torch/) inside the checkout. Imports no
+JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "smoke")
+DEVICE = "cuda"
 
 C2_EXPECTED_CLASSIFIED = 0.9719     # BENCH_r05.json, JAX package
 C2_TOLERANCE = 0.001
 PIPELINE_FLAGS = ["-batch-size", "16384", "-max-query-len", "104",
                   "-max-locations-per-query", "256"]
 PALLAS_SKETCH = "metacache_tpu/ops/sketch_pallas.py:165"
+PALLAS_GATHERS = {"k1": "tools/exp_pallas_gather.py:50",
+                  "k2": "tools/exp_pallas_gather.py:78"}
+#: config-2's lookup: its location table and the query's [B, lmax] slots
+C2_LOCATIONS = 86_957_916
+C2_SLOTS = (16384, 256)
+
+CPU_LINES = 16384          # reads compared with -device cpu
+ALIGN_READS = 4096
+MODIFY_ADDED = 500         # genomes that `modify` adds
+MERGE_READS = 131072
+INTERACTIVE_READS = 65536
+
+#: launches of each kernel, summed over the paths this run drove
+LAUNCHES = {"sketch_packed": 0, "gather_rows": 0}
 
 
 class SmokeFailure(Exception):
@@ -68,9 +104,59 @@ def port_cli(args, log):
     return time.time() - t0
 
 
+def kernel_modules():
+    from metacache_tpu_torch.ops import gather_cuda, sketch_cuda
+    return {"sketch_packed": sketch_cuda, "gather_rows": gather_cuda}
+
+
+def driven(path, kernels, args, stdin=None):
+    """One path through the port's CLI entry point, in this process, with
+    every kernel's launch count set to 0 just before it and read just
+    after; each kernel in `kernels` must have launched. Returns (stdout,
+    stderr, wall seconds, counts)."""
+    import torch
+    from metacache_tpu_torch import cli
+    mods = kernel_modules()
+    out, err = io.StringIO(), io.StringIO()
+    old_stdin = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(args + ["-device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = old_stdin
+    wall = time.time() - t0
+    counts = {name: m.launches for name, m in mods.items()}
+    check(rc == 0, f"{path}: {' '.join(args[:2])} failed (rc {rc}): "
+                   f"{err.getvalue()[-2000:]}")
+    for name in kernels:
+        LAUNCHES[name] += counts[name]
+        check_launched(path, name, counts[name])
+    return out.getvalue(), err.getvalue(), wall, counts
+
+
+def check_launched(path, name, n):
+    check(n > 0, f"{path}: the {name} kernel was never launched")
+
+
 def mapping_lines(path):
+    """The per-read lines of a result file (the summary's lines start
+    with '#', or hold no column separator)."""
     with open(path) as f:
-        return [ln for ln in f if not ln.startswith("#")]
+        return [ln for ln in f if not ln.startswith("#") and "\t|\t" in ln]
+
+
+def result_lines(path):
+    """Every line but the run-dependent '# time:' / '# speed:' ones."""
+    with open(path) as f:
+        return [ln for ln in f
+                if not ln.startswith(("# time:", "# speed:"))]
 
 
 def cuda_ms(fn, reps=10):
@@ -87,6 +173,22 @@ def cuda_ms(fn, reps=10):
     return a.elapsed_time(b) / reps
 
 
+def build_kernels():
+    """Both kernel libraries from the checkout's sources, one nvcc per
+    source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    libs = [m.LIBRARY for m in kernel_modules().values()]
+    t0 = time.time()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        list(ex.map(lambda lib: lib.load(), libs))
+    say("build", kernels=len(libs), seconds=f"{time.time() - t0:.1f}")
+    for lib in libs:
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "stack" in line:
+                say("build", source=os.path.basename(lib.source),
+                    ptxas=line.strip().replace(" ", "_"))
+
+
 def random_reads(rng, B, L, max_len, ambig_rate=0.01):
     """[B, L] 2-bit packed reads of random length <= max_len, some bases
     ambiguous, as the native reader packs them."""
@@ -101,16 +203,12 @@ def random_reads(rng, B, L, max_len, ambig_rate=0.01):
 
 
 def phase_kernel(dev):
-    """Kernel vs plain version on the card: bit-equal, timed."""
+    """Sketch kernel vs its plain version on the card: bit-equal, timed."""
     import numpy as np
     import torch
     from metacache_tpu_torch.ops import encode, sketch_cuda
     from metacache_tpu_torch.ops.sketch import sketch_packed_reference
 
-    sketch_cuda.load_library()
-    for line in sketch_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "stack" in line:
-            say("build", ptxas=line.strip().replace(" ", "_"))
     rng = np.random.default_rng(2024)
 
     def run(p, a, lens, L, k=16, s=16, W=128, stride=113):
@@ -140,37 +238,89 @@ def phase_kernel(dev):
             kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
 
     # edge cases: empty, shorter than k, all ambiguous, reads with N,
-    # k 12 and 16, B not a multiple of any tile
+    # k 12 and 16, B not a multiple of any tile, and the build's sketch
+    # sizes over 64 (the kernel's larger instantiation)
     B, L = 1000 + 7, 256
     p, a, lens = random_reads(rng, B, L, L, ambig_rate=0.03)
     lens[:4] = [0, 5, 15, 16]
     a[4:8] = 255          # all ambiguous
     for k in (12, 16):
-        for s in (1, 16, 64):
+        for s in (1, 16, 64, 80, 256):
             err, _, _ = run(p, a, lens, L, k=k, s=s)
             check(err == 0, f"kernel differs from plain on edge cases "
                             f"(k={k}, s={s})")
-    say("kernel", edge_cases="ok", B=B, k="12,16", s="1,16,64")
+    say("kernel", edge_cases="ok", B=B, k="12,16", s="1,16,64,80,256")
     return results
 
 
-def query_gpu(args, out_path):
-    """One query through the port's CLI entry point, in this process, so
-    the kernel's launch count and the device's peak memory are visible.
-    Returns (wall seconds, launches, peak bytes)."""
+def phase_gather(dev):
+    """Gather kernel vs its plain version on the card: bit-equal at the
+    probe k1's shapes, at config-2's lookup shape and on edge cases;
+    timed."""
     import torch
-    from metacache_tpu_torch import cli
-    from metacache_tpu_torch.ops import sketch_cuda
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sketch_cuda.launches = 0
-    t0 = time.time()
-    rc = cli.main(args + ["-device", "cuda", "-out", out_path])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = sketch_cuda.launches
-    check(rc == 0, f"GPU query failed (rc {rc})")
-    return wall, launches, torch.cuda.max_memory_allocated()
+    from metacache_tpu_torch.ops import gather_cuda
+    from metacache_tpu_torch.ops.gather import gather_rows_reference
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+
+    def case(N, B, L, dtype, full):
+        hi = torch.iinfo(dtype).max
+        table = torch.randint(0, hi, (N,), dtype=dtype, device=dev,
+                              generator=gen)
+        idx = torch.randint(0, N, (B, L), dtype=torch.int64, device=dev,
+                            generator=gen)
+        if full:
+            n_valid = torch.full((B,), L, dtype=torch.int64, device=dev)
+        else:
+            n_valid = torch.randint(0, L + 1, (B,), dtype=torch.int64,
+                                    device=dev, generator=gen)
+            n_valid[:2] = torch.tensor([0, L], device=dev)
+        return table, idx, n_valid, hi
+
+    def compare(name, table, idx, n_valid, pad, timed=False):
+        got = gather_cuda.gather_rows(table, idx, n_valid, pad)
+        want = gather_rows_reference(table, idx, n_valid, pad)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"gather kernel output dtype/shape ({name})")
+        err = int((got != want).sum())
+        check(err == 0, f"gather kernel differs from plain in {err} "
+                        f"elements ({name})")
+        res = dict(err=err)
+        if timed:
+            res["ms"] = cuda_ms(
+                lambda: gather_cuda.gather_rows(table, idx, n_valid, pad))
+            res["plain_ms"] = cuda_ms(
+                lambda: gather_rows_reference(table, idx, n_valid, pad))
+            say("gather", shape=name, max_abs_err=err,
+                kernel_ms=f"{res['ms']:.4f}",
+                plain_ms=f"{res['plain_ms']:.4f}")
+        return res
+
+    results = {}
+    # the probe k1: int32 table of 2^20 words, idx [2048, 128], rows full
+    t, i, n, pad = case(1 << 20, 2048, 128, torch.int32, True)
+    results["k1"] = compare("k1_N1048576_B2048xL128", t, i, n, pad, True)
+    del t, i, n
+    # config-2's lookup: its 86,957,916 packed locations (int64, 696 MB,
+    # far past the 50 MB L2) and [16384, 256] slots, rows 0..256 valid
+    t, i, n, pad = case(C2_LOCATIONS, *C2_SLOTS, torch.int64, False)
+    results["config2"] = compare(
+        f"config2_N{C2_LOCATIONS}_B{C2_SLOTS[0]}xL{C2_SLOTS[1]}", t, i, n,
+        pad, True)
+    del t, i, n
+    torch.cuda.empty_cache()
+    # edge cases: B 1007, a one-word table, rows with nothing valid
+    for name, N, B, L, dtype, full in (
+            ("B1007", 1 << 16, 1007, 256, torch.int64, False),
+            ("one_word_table", 1, 64, 7, torch.int32, True),
+            ("one_word_table_partial", 1, 33, 5, torch.int64, False)):
+        compare(name, *case(N, B, L, dtype, full))
+    t, i, n, pad = case(1000, 300, 64, torch.int64, False)
+    compare("nothing_valid", t, i, torch.zeros_like(n), -7)
+    say("gather", edge_cases="ok")
+    return results
 
 
 def classify_seconds(path):
@@ -196,6 +346,28 @@ def compare_cpu(db, reads, flags, limit, gpu_out, tag):
     say(tag, cpu_vs_gpu_lines_equal=limit)
 
 
+def classified_fraction(lines):
+    return sum(not ln.rstrip("\n").endswith("--") for ln in lines) \
+        / len(lines)
+
+
+def check_fraction(path, frac):
+    check(abs(frac - C2_EXPECTED_CLASSIFIED) <= C2_TOLERANCE,
+          f"{path}: classified fraction {frac:.4f} is not within "
+          f"{C2_TOLERANCE} of {C2_EXPECTED_CLASSIFIED}")
+
+
+def c2_query(path, db, reads, flags, out):
+    """A config-2 query driven through the CLI; returns the mapping lines,
+    wall seconds, counts and the device's peak memory."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _, _, wall, counts = driven(
+        path, ("sketch_packed", "gather_rows"),
+        ["query", db] + reads + flags + ["-out", out])
+    return mapping_lines(out), wall, counts, torch.cuda.max_memory_allocated()
+
+
 def phase_config2():
     import bench
     bench.C2 = os.path.join(WORK, "c2")
@@ -210,23 +382,20 @@ def phase_config2():
     reads = [os.path.join(c2, "reads.fa")]
     flags = ["-lowest", "species"] + PIPELINE_FLAGS
     out = os.path.join(WORK, "c2_gpu.txt")
-    wall, launches, peak = query_gpu(["query", db] + reads + flags, out)
-    lines = mapping_lines(out)
+    lines, wall, counts, peak = c2_query("config2", db, reads, flags, out)
     n = len(lines)
     check(n == bench.C2_READS, f"config-2: {n} mapping lines")
-    frac = sum(not ln.rstrip("\n").endswith("--") for ln in lines) / n
+    frac = classified_fraction(lines)
     qs = classify_seconds(out)
     say("config2", reads=n, build_seconds=f"{build_s:.2f}",
         query_wall_seconds=f"{wall:.2f}", reads_per_s_wall=f"{n / wall:.1f}",
         classify_seconds=f"{qs:.3f}", reads_per_s_classify=f"{n / qs:.1f}",
         classified_frac=f"{frac:.4f}", peak_device_bytes=peak,
-        sketch_launches=launches)
-    check(launches > 0, "config-2: the sketch kernel was never launched")
-    check(abs(frac - C2_EXPECTED_CLASSIFIED) <= C2_TOLERANCE,
-          f"config-2 classified fraction {frac:.4f} is not within "
-          f"{C2_TOLERANCE} of {C2_EXPECTED_CLASSIFIED}")
-    compare_cpu(db, reads, flags, 16384, out, "config2")
-    return launches
+        sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    check_fraction("config-2", frac)
+    compare_cpu(db, reads, flags, CPU_LINES, out, "config2")
+    return dict(db=db, reads=reads, flags=flags, out=out, dir=c2)
 
 
 def phase_realistic():
@@ -243,17 +412,221 @@ def phase_realistic():
     reads = [os.path.join(big, "reads_1.fa"), os.path.join(big, "reads_2.fa")]
     flags = ["-pairfiles", "-lowest", "species"] + PIPELINE_FLAGS
     out = os.path.join(WORK, "realistic_gpu.txt")
-    wall, launches, peak = query_gpu(["query", db] + reads + flags, out)
-    n = len(mapping_lines(out))
+    lines, wall, counts, peak = c2_query("realistic", db, reads, flags, out)
+    n = len(lines)
     check(n == bench.BIG_PAIRS, f"realistic: {n} mapping lines")
     qs = classify_seconds(out)
     say("realistic", pairs=n, build_seconds=f"{build_s:.2f}",
         query_wall_seconds=f"{wall:.2f}", pairs_per_s_wall=f"{n / wall:.1f}",
         classify_seconds=f"{qs:.3f}", pairs_per_s_classify=f"{n / qs:.1f}",
-        peak_device_bytes=peak, sketch_launches=launches)
-    check(launches > 0, "realistic: the sketch kernel was never launched")
+        peak_device_bytes=peak, sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
     compare_cpu(db, reads, flags, 8192, out, "realistic")
-    return launches
+
+
+def phase_evaluation(c2):
+    """-exclude species -precision over every read: a read's own genome is
+    genome gi of its header r<i>_NC_<gi>.1, whose species is
+    Species{gi} (bench.py); no read may be classified as it."""
+    flags = ["-exclude", "species", "-precision", "-lowest", "species"] \
+        + PIPELINE_FLAGS
+    out = os.path.join(WORK, "c2_exclude_gpu.txt")
+    lines, wall, counts, _ = c2_query("evaluation", c2["db"], c2["reads"],
+                                      flags, out)
+    check(len(lines) == len(mapping_lines(c2["out"])),
+          f"evaluation: {len(lines)} mapping lines")
+    own = 0
+    for ln in lines:
+        cols = ln.rstrip("\n").split("\t|\t")
+        gi = int(cols[0].split("_NC_")[1].split(".")[0])
+        own += cols[-1].split(":")[-1] == f"Species{gi}"
+    check(own == 0, f"evaluation: {own} reads classified as their own "
+                    "(excluded) species")
+    say("evaluation", reads=len(lines), query_wall_seconds=f"{wall:.2f}",
+        classify_seconds=f"{classify_seconds(out):.3f}",
+        classified_frac=f"{classified_fraction(lines):.4f}",
+        own_species_lines=own, sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    compare_cpu(c2["db"], c2["reads"], flags, CPU_LINES, out, "evaluation")
+
+
+def gpu_equals_cpu(path, c2, flags, limit):
+    """One option set on the first `limit` reads: -device cuda (driven
+    here) and -device cpu (its own process) write the same bytes, apart
+    from '# time:' / '# speed:'."""
+    tail = ["-query-limit", str(limit)]
+    gpu_out = os.path.join(WORK, f"{path}_gpu.txt")
+    cpu_out = os.path.join(WORK, f"{path}_cpu.txt")
+    _, _, wall, counts = driven(
+        path, ("sketch_packed", "gather_rows"),
+        ["query", c2["db"]] + c2["reads"] + flags + tail + ["-out", gpu_out])
+    cpu_s = port_cli(["query", c2["db"]] + c2["reads"] + flags + tail
+                     + ["-device", "cpu", "-out", cpu_out],
+                     os.path.join(WORK, f"{path}_cpu.log"))
+    gpu, cpu = result_lines(gpu_out), result_lines(cpu_out)
+    check(len(mapping_lines(gpu_out)) >= limit,
+          f"{path}: {len(mapping_lines(gpu_out))} lines")
+    diff = sum(a != b for a, b in zip(gpu, cpu)) + abs(len(gpu) - len(cpu))
+    check(diff == 0, f"{path}: {diff} lines differ between -device cuda "
+                     "and -device cpu")
+    say(path, reads=limit, lines_equal=len(gpu),
+        gpu_wall_seconds=f"{wall:.2f}", cpu_wall_seconds=f"{cpu_s:.2f}",
+        sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    return gpu
+
+
+def phase_options(c2):
+    hps = gpu_equals_cpu("hits_per_seq", c2, ["-hits-per-seq", "-tophits",
+                                              "-lowest", "species"]
+                         + PIPELINE_FLAGS, CPU_LINES)
+    check(any("list of hits for each reference" in ln for ln in hps),
+          "hits_per_seq: no hits-per-target list")
+    aln = gpu_equals_cpu("align", c2, ["-align"] + PIPELINE_FLAGS,
+                         ALIGN_READS)
+    check(any("aligned to" in ln for ln in aln), "align: no alignment")
+
+
+def npz_arrays(path):
+    import numpy as np
+    with np.load(path, allow_pickle=True) as z:   # names are objects
+        return {k: z[k] for k in z.files}
+
+
+def split_genomes(c2):
+    """genomes.fa (one header and one sequence line per genome) -> the
+    first genomes (A) and the last MODIFY_ADDED (B)."""
+    src = os.path.join(c2["dir"], "genomes.fa")
+    with open(src, "rb") as f:
+        lines = f.readlines()
+    cut = len(lines) - 2 * MODIFY_ADDED
+    paths = [os.path.join(WORK, "genomes_a.fa"),
+             os.path.join(WORK, "genomes_b.fa")]
+    for path, part in zip(paths, (lines[:cut], lines[cut:])):
+        with open(path, "wb") as f:
+            f.writelines(part)
+    return paths
+
+
+def phase_modify(c2):
+    """Build A natively, add B with `modify` on cuda and on cpu: the two
+    databases are equal array for array; the feature table equals the
+    one-shot build's; every read is queried against the result."""
+    import numpy as np
+    from metacache_tpu.db.database import shard_path
+    tax = os.path.join(c2["dir"], "tax")
+    fa, fb = split_genomes(c2)
+    db_a = os.path.join(WORK, "db_a")
+    build_s = port_cli(["build", db_a, fa, "-taxonomy", tax],
+                       os.path.join(WORK, "db_a_build.log"))
+    dbs = {}
+    for dev in ("cuda", "cpu"):
+        dbs[dev] = os.path.join(WORK, f"db_ab_{dev}")
+        shutil.copyfile(shard_path(db_a, 0), shard_path(dbs[dev], 0))
+    stdout, _, wall, counts = driven("modify", ("sketch_packed",),
+                                     ["modify", dbs["cuda"], fb])
+    check(f"Added {MODIFY_ADDED} reference sequences." in stdout,
+          f"modify: {stdout[-500:]}")
+    cpu_s = port_cli(["modify", dbs["cpu"], fb, "-device", "cpu"],
+                     os.path.join(WORK, "modify_cpu.log"))
+    got = npz_arrays(shard_path(dbs["cuda"], 0))
+    want = npz_arrays(shard_path(dbs["cpu"], 0))
+    check(sorted(got) == sorted(want), "modify: array names differ")
+    for k in want:
+        check(got[k].dtype == want[k].dtype
+              and np.array_equal(got[k], want[k]),
+              f"modify: array {k} differs between cuda and cpu")
+    oneshot = npz_arrays(shard_path(c2["db"], 0))
+    table_equal = all(np.array_equal(got[k], oneshot[k])
+                      for k in ("keys", "offsets", "loc_tgt", "loc_win",
+                                "target_taxon_node"))
+    del got, want, oneshot
+    say("modify", build_a_seconds=f"{build_s:.2f}",
+        modify_gpu_seconds=f"{wall:.2f}", modify_cpu_seconds=f"{cpu_s:.2f}",
+        arrays_equal_cuda_cpu="yes",
+        table_equals_oneshot="yes" if table_equal else "no",
+        sketch_launches=counts["sketch_packed"])
+    out = os.path.join(WORK, "c2_modified_gpu.txt")
+    lines, wall, counts, _ = c2_query("modified_query", dbs["cuda"],
+                                      c2["reads"], c2["flags"], out)
+    frac = classified_fraction(lines)
+    oneshot_lines = mapping_lines(c2["out"])
+    same = sum(a == b for a, b in zip(lines, oneshot_lines))
+    say("modified_query", reads=len(lines), classified_frac=f"{frac:.4f}",
+        lines_equal_oneshot=f"{same}/{len(oneshot_lines)}",
+        query_wall_seconds=f"{wall:.2f}",
+        sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    check(len(lines) == len(oneshot_lines),
+          f"modified_query: {len(lines)} mapping lines")
+    check_fraction("modified_query", frac)
+    check(table_equal, "modify: the feature table differs from the "
+                       "one-shot build's")
+    check(same == len(oneshot_lines), "modified_query: mapping lines "
+                                      "differ from the one-shot build's")
+    return db_a, fb
+
+
+def phase_merge(c2, db_a, fb):
+    """Query the first MERGE_READS reads against A and against a native
+    build of B, merge the two result files on cuda and on cpu."""
+    tax = os.path.join(c2["dir"], "tax")
+    db_b = os.path.join(WORK, "db_b")
+    port_cli(["build", db_b, fb, "-taxonomy", tax],
+             os.path.join(WORK, "db_b_build.log"))
+    flags = ["-tophits", "-queryids", "-lowest", "species",
+             "-query-limit", str(MERGE_READS)] + PIPELINE_FLAGS
+    parts = []
+    for name, db in (("a", db_a), ("b", db_b)):
+        parts.append(os.path.join(WORK, f"merge_part_{name}.txt"))
+        driven(f"merge_query_{name}", ("sketch_packed", "gather_rows"),
+               ["query", db] + c2["reads"] + flags + ["-out", parts[-1]])
+    merged = {dev: os.path.join(WORK, f"merged_{dev}.txt")
+              for dev in ("cuda", "cpu")}
+    _, _, wall, _ = driven("merge", (), ["merge"] + parts
+                           + ["-taxonomy", tax, "-out", merged["cuda"]])
+    cpu_s = port_cli(["merge"] + parts + ["-taxonomy", tax, "-device", "cpu",
+                                          "-out", merged["cpu"]],
+                     os.path.join(WORK, "merge_cpu.log"))
+    gpu, cpu = result_lines(merged["cuda"]), result_lines(merged["cpu"])
+    check(gpu == cpu, "merge: -device cuda and -device cpu differ")
+    lines = mapping_lines(merged["cuda"])
+    check(len(lines) == MERGE_READS, f"merge: {len(lines)} merged lines")
+    oneshot = mapping_lines(c2["out"])[:MERGE_READS]
+    agree = sum(a == b for a, b in zip(lines, oneshot))
+    say("merge", reads=len(lines), cuda_equals_cpu="yes",
+        merge_gpu_seconds=f"{wall:.2f}", merge_cpu_seconds=f"{cpu_s:.2f}",
+        lines_agree_with_oneshot=f"{agree}/{len(oneshot)}")
+
+
+def phase_interactive(c2):
+    """Two stdin lines; the second changes only -hitmin."""
+    line = " ".join(c2["reads"] + c2["flags"]
+                    + ["-query-limit", str(INTERACTIVE_READS)])
+    outs = [os.path.join(WORK, f"interactive_{i}.txt") for i in (1, 2)]
+    stdin = (f"{line} -out {outs[0]}\n"
+             f"{line} -hitmin 6 -out {outs[1]}\n")
+    _, err, wall, counts = driven(
+        "interactive", ("sketch_packed", "gather_rows"),
+        ["query", c2["db"]], stdin=stdin)
+    check(err.count("(reusing loaded engine)") == 1,
+          f"interactive: the engine was not reused: {err[-500:]}")
+    first = mapping_lines(outs[0])
+    want = mapping_lines(c2["out"])[:INTERACTIVE_READS]
+    check(first == want, "interactive: the first line's output differs "
+                         "from the non-interactive run's")
+    say("interactive", lines=2, reads_per_line=INTERACTIVE_READS,
+        first_equals_noninteractive="yes", engine_reused="yes",
+        wall_seconds=f"{wall:.2f}", sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+
+
+def phase_info(c2):
+    for what in ([], ["rank", "species"]):
+        out, _, wall, _ = driven("info", (), ["info", c2["db"]] + what)
+        check(len(out.splitlines()) > 2, f"info {what}: {out[-500:]}")
+        say("info", what="_".join(what) or "statistics",
+            lines=len(out.splitlines()), wall_seconds=f"{wall:.2f}")
 
 
 def use_repo_tests_package():
@@ -264,6 +637,40 @@ def use_repo_tests_package():
     pkg = types.ModuleType("tests")
     pkg.__path__ = [os.path.join(REPO, "tests")]
     sys.modules["tests"] = pkg
+
+
+def kernels_json(sketch, gather):
+    cell = sketch["cells"]
+    c2 = gather["config2"]
+    rows = [{
+        "name": "sketch_packed",
+        "route": "cuda",
+        "source": "metacache_tpu_torch/csrc/sketch.cu",
+        "replaces": PALLAS_SKETCH,
+        "launches": LAUNCHES["sketch_packed"],
+        "max_abs_err": max(r["err"] for r in sketch.values()),
+        "ms": cell["ms"],
+        "plain_ms": cell["plain_ms"],
+        "shape": cell["shape"],
+    }]
+    # one kernel replaces both probes (k2's row-and-lane layout has no
+    # counterpart on Hopper); its time at config-2's lookup shape
+    for probe, where in PALLAS_GATHERS.items():
+        rows.append({
+            "name": "gather_rows",
+            "route": "cuda",
+            "source": "metacache_tpu_torch/csrc/gather.cu",
+            "replaces": where,
+            "launches": LAUNCHES["gather_rows"],
+            "max_abs_err": max(r["err"] for r in gather.values()),
+            "ms": c2["ms"],
+            "plain_ms": c2["plain_ms"],
+            "shape": f"N{C2_LOCATIONS}_B{C2_SLOTS[0]}xL{C2_SLOTS[1]}",
+            "probe": probe,
+            "k1_ms": gather["k1"]["ms"],
+            "k1_plain_ms": gather["k1"]["plain_ms"],
+        })
+    return {"kernels": rows}
 
 
 def main() -> int:
@@ -297,25 +704,23 @@ def main() -> int:
             count=torch.cuda.device_count(), torch=torch.__version__,
             cuda=torch.version.cuda)
         t0 = time.time()
-        times = phase_kernel(torch.device("cuda"))
-        c2_launches = phase_config2()
-        re_launches = phase_realistic()
+        build_kernels()
+        dev = torch.device("cuda")
+        sketch = phase_kernel(dev)
+        gather = phase_gather(dev)
+        c2 = phase_config2()
+        phase_realistic()
+        phase_evaluation(c2)
+        phase_options(c2)
+        db_a, fb = phase_modify(c2)
+        phase_merge(c2, db_a, fb)
+        phase_interactive(c2)
+        phase_info(c2)
         say("done", seconds=f"{time.time() - t0:.1f}")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    cell = times["cells"]
-    print(json.dumps({"kernels": [{
-        "name": "sketch_packed",
-        "route": "cuda",
-        "source": "metacache_tpu_torch/csrc/sketch.cu",
-        "replaces": PALLAS_SKETCH,
-        "launches": c2_launches + re_launches,
-        "max_abs_err": max(r["err"] for r in times.values()),
-        "ms": cell["ms"],
-        "plain_ms": cell["plain_ms"],
-        "shape": cell["shape"],
-    }]}), flush=True)
+    print(json.dumps(kernels_json(sketch, gather)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,9 @@
 
 Usage: python -m metacache_tpu_torch.cli <mode> ... [-device cuda|cpu]
 
-`build` and `query` run on the port (query on -device, default cuda);
-`help` and `annotate` are host-only and dispatch to the JAX package's
-JAX-free modules. The other modes are not yet ported.
+`build`, `modify`, `query`, `info` and `merge` run on the port (their
+device work on -device, default cuda); `help` and `annotate` are
+host-only and dispatch to the JAX package's JAX-free modules.
 """
 from __future__ import annotations
 
@@ -12,8 +12,7 @@ import sys
 
 from metacache_tpu.utils import ArgsParser
 
-MODES = ("help", "build", "query", "annotate")
-NOT_YET_PORTED = ("modify", "info", "merge")
+MODES = ("help", "build", "modify", "query", "info", "annotate", "merge")
 
 
 def main(argv=None) -> int:
@@ -30,9 +29,18 @@ def main(argv=None) -> int:
         if mode == "build":
             from .modes.build import main_mode_build
             return main_mode_build(args)
+        if mode == "modify":
+            from .modes.modify import main_mode_modify
+            return main_mode_modify(args)
         if mode == "query":
             from .modes.query import main_mode_query
             return main_mode_query(args)
+        if mode == "info":
+            from .modes.info import main_mode_info
+            return main_mode_info(args)
+        if mode == "merge":
+            from .modes.merge import main_mode_merge
+            return main_mode_merge(args)
         if mode == "help":
             from metacache_tpu.modes.help import main_mode_help
             return main_mode_help(args)
@@ -41,10 +49,6 @@ def main(argv=None) -> int:
             return main_mode_annotate(args)
     except NotImplementedError as e:
         print(f"not yet ported: {e}", file=sys.stderr)
-        return 1
-    if mode in NOT_YET_PORTED:
-        print(f"mode '{mode}' is not yet ported to metacache_tpu_torch; "
-              "use python -m metacache_tpu.cli", file=sys.stderr)
         return 1
     print(f"unknown mode '{mode}'; available: {', '.join(MODES)}",
           file=sys.stderr)

@@ -9,7 +9,11 @@
 // smallest DISTINCT hashes are written in ascending order, padded with
 // 0xFFFFFFFF (single_function_unique_min_hasher, reference
 // src/hash_dna.h:50-182). A hash equal to 0xFFFFFFFF never enters a
-// sketch. Unlike the Pallas kernel it takes any 1 <= k <= 16 and any B.
+// sketch. Unlike the Pallas kernel it takes any 1 <= k <= 16, any B and
+// sketch sizes up to kMaxSketchLarge: sizes up to kMaxSketch (the default
+// 16 and everything the native host sketcher takes) run an instantiation
+// with a 64-entry buffer, larger ones one with a 256-entry buffer, so the
+// common case keeps its small per-thread footprint.
 //
 // What bounds it on the card: integer ALU work. A 100 bp read arrives as
 // ~26 bytes of 2-bit codes (+13 bytes of ambiguity bits) and costs ~100
@@ -25,8 +29,8 @@
 // memory for the buffer) is later work.
 //
 // Plain C interface, bound with ctypes (metacache_tpu_torch/ops/
-// sketch_cuda.py). The launcher returns cudaGetLastError() after the
-// launch; the caller allocates every buffer.
+// sketch_cuda.py, built by ops/cuda_build.py). The launcher returns
+// cudaGetLastError() after the launch; the caller allocates every buffer.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -34,6 +38,7 @@
 namespace {
 
 constexpr int kMaxSketch = 64;
+constexpr int kMaxSketchLarge = 256;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t tm_hash(uint32_t x) {
@@ -51,6 +56,7 @@ __device__ __forceinline__ uint32_t revcomp(uint32_t s, int k) {
   return (~s) >> (32 - 2 * k);
 }
 
+template <int kMax>
 __global__ void sketch_packed_kernel(const uint8_t* __restrict__ packed,
                                      const uint8_t* __restrict__ ambig,
                                      const int32_t* __restrict__ lens,
@@ -71,7 +77,7 @@ __global__ void sketch_packed_kernel(const uint8_t* __restrict__ packed,
   const uint8_t* arow = ambig + static_cast<size_t>(b) * P8;
   const uint32_t mask = k == 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1u;
 
-  uint32_t sk[kMaxSketch];  // ascending, distinct
+  uint32_t sk[kMax];  // ascending, distinct
   int cnt = 0;
   uint32_t kmer = 0;
   int clean = 0;  // unambiguous characters ending at the current one
@@ -105,14 +111,16 @@ extern "C" int mc_sketch_packed(const void* packed, const void* ambig,
                                 const void* lens, const void* starts,
                                 void* out, int B, int P4, int P8, int n_win,
                                 int k, int s, int W, void* stream) {
-  if (k < 1 || k > 16 || s < 1 || s > kMaxSketch || P8 * 2 != P4)
+  if (k < 1 || k > 16 || s < 1 || s > kMaxSketchLarge || P8 * 2 != P4)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(B) * n_win;
   if (total == 0) return 0;
   const int threads = 128;
   const long long blocks = (total + threads - 1) / threads;
-  sketch_packed_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = s <= kMaxSketch ? sketch_packed_kernel<kMaxSketch>
+                                : sketch_packed_kernel<kMaxSketchLarge>;
+  kernel<<<static_cast<unsigned>(blocks), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), static_cast<const uint8_t*>(ambig),
       static_cast<const int32_t*>(lens), static_cast<const int32_t*>(starts),
       static_cast<int64_t*>(out), B, P4, P8, n_win, k, s, W);

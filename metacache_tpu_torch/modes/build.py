@@ -1,8 +1,9 @@
 """Build mode CLI driver (main_mode_build, src/mode_build.cpp:1145-1175).
 
-Counterpart of metacache_tpu/modes/build.py on the port's native-only
-build (db/build.py). Single process: all requested shards are built in
-one pass over the inputs.
+Counterpart of metacache_tpu/modes/build.py on the port's build
+(db/build.py). Single process: all requested shards are built in one pass
+over the inputs. `-device cuda|cpu` (default cuda) is where files that
+take the WindowBatcher path are sketched.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ def get_build_options(args: ArgsParser) -> build_mod.BuildOptions:
         taxonomy_merged=os.path.join(taxdir, "merged.dmp") if taxdir else "",
         taxpostmap=tuple(args.get_all("taxpostmap")),
         reset_parents=args.contains(["reset-parents", "reset_parents"]),
-        info_level=info_level)
+        info_level=info_level,
+        device=args.get("device", "cuda"))
 
 
 def main_mode_build(args: ArgsParser) -> int:

@@ -1,86 +1,37 @@
 """Wrapper of the hand-written CUDA sketch kernel (csrc/sketch.cu).
 
 Counterpart of metacache_tpu/ops/sketch_pallas.py::sketch_packed_pallas.
-The kernel is compiled with nvcc for sm_90a at first use, from the source
-in the package, into build/metacache_tpu_torch/ beside the package, and
-loaded with ctypes (plain C interface; no PyTorch headers, so the build
-takes seconds). CPU tensors go to the plain version
-(ops/sketch.py::sketch_packed_reference); CUDA tensors go to the kernel
-or raise.
+The kernel is built at first use (ops/cuda_build.py). CPU tensors go to
+the plain version (ops/sketch.py::sketch_packed_reference); CUDA tensors
+go to the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from typing import Dict, Sequence, Tuple
 
 import torch
 
+from .cuda_build import CudaLibrary
 from .sketch import sketch_packed_reference
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "sketch.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                         "metacache_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: must equal kMaxSketch in csrc/sketch.cu
-MAX_SKETCH_SIZE = 64
+#: must equal kMaxSketchLarge in csrc/sketch.cu (sizes up to 64 run the
+#: kMaxSketch instantiation)
+MAX_SKETCH_SIZE = 256
 
 #: number of kernel launches made by sketch_packed (not by the plain path)
 launches = 0
-#: nvcc's output (ptxas register / local-memory report) of the last build
-build_log = ""
 
-_lock = threading.Lock()
-_lib = None
 _starts_cache: Dict[Tuple[int, Tuple[int, ...]], torch.Tensor] = {}
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA sketch kernel is built "
-                           "from csrc/sketch.cu at first use")
-    return nvcc
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.mc_sketch_packed.restype = ctypes.c_int
+    lib.mc_sketch_packed.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
-def library_path() -> str:
-    """Build (if needed) and return the kernel library. The file name
-    carries a hash of the source and flags, so an edit rebuilds."""
-    global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"libmc_sketch_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                       capture_output=True, text=True)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, path)
-    return path
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(library_path())
-            lib.mc_sketch_packed.restype = ctypes.c_int
-            lib.mc_sketch_packed.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                + [ctypes.c_void_p])
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("sketch.cu", "libmc_sketch", _declare)
 
 
 def _starts_tensor(device: torch.device,
@@ -122,12 +73,14 @@ def sketch_packed(packed: torch.Tensor, ambig: torch.Tensor,
                 f"{tuple(t.shape)} on {t.device}")
     if P4 % 2 or not 1 <= k <= 16 or not 1 <= sketch_size <= MAX_SKETCH_SIZE:
         raise ValueError(f"sketch_packed: unsupported L={P4 * 4} k={k} "
-                         f"sketch_size={sketch_size}")
+                         f"sketch_size={sketch_size} (the CUDA kernel takes "
+                         f"L % 8 == 0, 1 <= k <= 16 and sketch sizes up to "
+                         f"{MAX_SKETCH_SIZE})")
     out = torch.empty((B, len(starts) * sketch_size), dtype=torch.int64,
                       device=dev)
     if out.numel() == 0:
         return out
-    lib = load_library()
+    lib = LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.mc_sketch_packed(
             packed.data_ptr(), ambig.data_ptr(), lens.data_ptr(),

@@ -11,6 +11,11 @@ Per batch of packed reads:
   host:   one device->host copy of the [4, B] summary (best, best_rank,
           match total, overflow); candidate tensors only on demand.
 
+Options of the JAX engine kept here: clade exclusion (set_exclusion: the
+matches of each read's own clade are dropped after the lookup's cut, see
+ops/lookup.py) and per-candidate window hit counts for -hits-per-seq
+(target_window_k > 0).
+
 It runs one tier at lmax = max_locations_per_query over the legacy wire;
 the JAX engine's direct tier, slim wire and packed summary give the same
 results and are not carried. Dispatch does not block on the device:
@@ -48,12 +53,20 @@ def _to_device_int64(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def tables_from_database(db: Database, device: torch.device,
-                         lowest_rank: int = Rank.SEQUENCE
+                         lowest_rank: int = Rank.SEQUENCE,
+                         like: Dict[str, torch.Tensor] = None
                          ) -> Dict[str, torch.Tensor]:
     """The engine's device tables, from the same numpy arrays the JAX
     engine uploads: sorted feature keys, CSR offsets, locations packed as
     (target << 32 | window), the target -> candidate-taxon map and the
-    ranked lineage table. All int64."""
+    ranked lineage table. All int64.
+
+    Only the candidate-taxon map depends on lowest_rank: given the tables
+    of another rank (`like`, same database and device), the others are
+    shared instead of uploaded again."""
+    tct = _to_device_int64(db.target_cand_tax(lowest_rank), device)
+    if like is not None:
+        return dict(like, target_cand_tax=tct)
     keys, offsets, loc_tgt, loc_win = db.features.device_arrays()
     locations = torch.empty(len(loc_tgt), dtype=torch.int64, device=device)
     for o in range(0, len(loc_tgt), _CHUNK):
@@ -64,11 +77,20 @@ def tables_from_database(db: Database, device: torch.device,
         "keys": _to_device_int64(keys, device),
         "offsets": _to_device_int64(offsets, device),
         "locations": locations,
-        "target_cand_tax": _to_device_int64(
-            db.target_cand_tax(lowest_rank), device),
+        "target_cand_tax": tct,
         "ranked_lineage": torch.from_numpy(np.asarray(
             db.taxonomy.ranked_lineage, dtype=np.int64)).to(device),
     }
+
+
+def make_target_groups(db: Database, rank_code: int) -> np.ndarray:
+    """[T+1] int64 map target id -> ancestor taxon at `rank_code` (the
+    exclusion group of remove_hits_on_rank, src/classification.cpp:141-157);
+    the trailing 0 absorbs the pad."""
+    anc = db.taxonomy.ranked_lineage[:, rank_code].astype(np.int64)
+    groups = np.zeros(db.target_count + 1, np.int64)
+    groups[:-1] = anc[db.target_taxon_node]
+    return groups
 
 
 def compute_features(packed1, ambig1, lens1, packed2, ambig2, lens2, *,
@@ -109,20 +131,43 @@ def unfuse_device_inputs(fused: torch.Tensor, qlen: int):
     return tuple(out)
 
 
+def target_window_hits(cand: Dict[str, torch.Tensor], tgt: torch.Tensor,
+                       win: torch.Tensor, target_window_k: int
+                       ) -> torch.Tensor:
+    """Per-candidate window hit counts for the hits-per-target report
+    (matches_per_target::insert, src/matches_per_target.h:111-155; JAX
+    engine target_window_hits): the number of (cand tgt, cand beg + k),
+    k < K, in the read's sorted match list, 0 past the candidate's end
+    window. -> [B, C, K] int64. Each count is the distance between the
+    two searchsorted bounds of a packed (tgt << 32 | window) word."""
+    B, C = cand["tgt"].shape
+    qwin = cand["beg"][:, :, None] + torch.arange(target_window_k,
+                                                  device=tgt.device)
+    q = ((cand["tgt"][:, :, None] << LOC_SHIFT) | qwin).reshape(B, -1)
+    row = (tgt << LOC_SHIFT) | win
+    counts = (torch.searchsorted(row, q, right=True)
+              - torch.searchsorted(row, q)).reshape(qwin.shape)
+    return torch.where(qwin <= cand["end"][:, :, None], counts, 0)
+
+
 def query_batch(packed1, ambig1, lens1, packed2, ambig2, lens2,
                 tables: Dict[str, torch.Tensor], *, k: int,
                 sketch_size: int, window_size: int, window_stride: int,
                 starts: Sequence[int], lmax: int, max_candidates: int,
                 insert_size_max: int, hits_min: int,
-                hits_diff_fraction: float, highest_rank: int) -> Dict:
+                hits_diff_fraction: float, highest_rank: int,
+                exclude_groups: torch.Tensor = None,
+                target_window_k: int = 0) -> Dict:
     """One batch: packed reads -> classification (the port of
-    _query_batch_device / local_candidates)."""
+    _query_batch_device / local_candidates). With exclude_groups [B],
+    tables must hold "target_groups" (QueryEngine.set_exclusion)."""
     features = compute_features(
         packed1, ambig1, lens1, packed2, ambig2, lens2, k=k,
         sketch_size=sketch_size, window_size=window_size, starts=starts)
     tgt, win, total, overflow = lookup_matches(
         features, tables["keys"], tables["offsets"], tables["locations"],
-        lmax)
+        lmax, exclude_groups=exclude_groups,
+        target_groups=tables.get("target_groups"))
     # maxWindowsInRange = 2 + max(len1+len2, insertSizeMax) / winstride
     # (src/classification.cpp:217-219)
     pair_len = (lens1.long() + lens2.long()).clamp(min=insert_size_max)
@@ -132,15 +177,20 @@ def query_batch(packed1, ambig1, lens1, packed2, ambig2, lens2,
     best, best_rank = classify_lca(cand["tax"], cand["hits"],
                                    tables["ranked_lineage"], hits_min,
                                    hits_diff_fraction, highest_rank)
-    return {"cand": cand, "best": best, "best_rank": best_rank,
-            "match_total": total, "match_overflow": overflow}
+    out = {"cand": cand, "best": best, "best_rank": best_rank,
+           "match_total": total, "match_overflow": overflow}
+    if target_window_k:
+        out["target_window_hits"] = target_window_hits(cand, tgt, win,
+                                                       target_window_k)
+    return out
 
 
 class BatchResult:
     """Result of one classified batch (first n rows are valid reads).
 
     best / best_rank / match_total / match_overflow are host int32 arrays;
-    candidate fields are copied from the device on first access."""
+    candidate fields (and target_window_hits [B, C, K], None unless the
+    engine counts them) are copied from the device on first access."""
 
     def __init__(self, n: int, out: Dict):
         self.n = n
@@ -149,21 +199,24 @@ class BatchResult:
             ev.synchronize()
         s = out["_summary_host"].numpy().astype(np.int32)
         self.best, self.best_rank, self.match_total, self.match_overflow = s
-        self._cand = out["cand"]
+        self._dev = dict(out["cand"])
+        self._dev["target_window_hits"] = out.get("target_window_hits")
         self._host: Dict[str, np.ndarray] = {}
 
     def _field(self, name: str) -> np.ndarray:
-        v = self._host.get(name)
-        if v is None:
-            v = self._cand[name].cpu().numpy().astype(np.int32)
-            self._host[name] = v
-        return v
+        if name not in self._host:
+            v = self._dev[name]
+            self._host[name] = None if v is None \
+                else v.cpu().numpy().astype(np.int32)
+        return self._host[name]
 
     cand_tax = property(lambda self: self._field("tax"))
     cand_hits = property(lambda self: self._field("hits"))
     cand_beg = property(lambda self: self._field("beg"))
     cand_end = property(lambda self: self._field("end"))
     cand_tgt = property(lambda self: self._field("tgt"))
+    target_window_hits = property(
+        lambda self: self._field("target_window_hits"))
 
 
 class QueryEngine:
@@ -171,10 +224,15 @@ class QueryEngine:
 
     def __init__(self, db: Database, classify: ClassifyParams,
                  pipeline: QueryPipelineParams = QueryPipelineParams(),
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 target_window_k: int = 0,
+                 tables: Dict[str, torch.Tensor] = None):
+        """`tables`: device tables of this database for this lowest rank,
+        already uploaded (tables_from_database), to share them."""
         self.db = db
         self.pipeline = pipeline
         self.device = device
+        self.target_window_k = target_window_k
         p = db.query_sketch_params
         self.sketch_params = p
         self.update_runtime_thresholds(classify)
@@ -184,7 +242,9 @@ class QueryEngine:
         self.starts = tuple(int(s) for s in encode.window_starts(
             pipeline.max_query_len, p.window_size, p.window_stride))
         self.lmax = pipeline.max_locations_per_query
-        self.tables = tables_from_database(db, device, self.lowest_rank)
+        self.tables = tables if tables is not None else \
+            tables_from_database(db, device, self.lowest_rank)
+        self.exclude_rank = Rank.NONE
 
     def update_runtime_thresholds(self, classify: ClassifyParams):
         """Adopt new hits_min / hits_diff_fraction (runtime scalars)."""
@@ -192,28 +252,52 @@ class QueryEngine:
         self.hits_min = classify.resolved_hits_min(
             self.db.sketch_params.sketch_size)
 
+    def set_exclusion(self, rank_code: int):
+        """Enable clade exclusion on `rank_code`: per-read exclusion groups
+        (exclusion_group_of each read's ground truth) must then be passed
+        to dispatch_packed / classify_batch."""
+        self.tables = dict(self.tables, target_groups=torch.from_numpy(
+            make_target_groups(self.db, rank_code)).to(self.device))
+        self.exclude_rank = rank_code
+
+    def exclusion_group_of(self, node: int) -> int:
+        if node == 0:
+            return 0
+        return int(self.db.taxonomy.ranked_lineage[node, self.exclude_rank])
+
     def make_host_buffers(self):
         B, L = self.pipeline.batch_size, self.pipeline.max_query_len
         return (np.zeros((B, L), np.uint8), np.zeros(B, np.int32),
                 np.zeros((B, L), np.uint8), np.zeros(B, np.int32))
 
-    def classify_batch(self, codes1, lens1, codes2, lens2,
-                       n: int) -> BatchResult:
+    def classify_batch(self, codes1, lens1, codes2, lens2, n: int,
+                       exclude_groups=None) -> BatchResult:
         """Classify a (padded) batch of 2-bit codes; first n rows valid."""
         p1, a1 = encode.np_pack_codes(codes1)
         p2, a2 = encode.np_pack_codes(codes2)
         return self.materialize(
-            self.dispatch_packed(p1, a1, lens1, p2, a2, lens2), n)
+            self.dispatch_packed(p1, a1, lens1, p2, a2, lens2,
+                                 exclude_groups=exclude_groups), n)
 
-    def dispatch_packed(self, p1, a1, lens1, p2, a2, lens2) -> Dict:
+    def dispatch_packed(self, p1, a1, lens1, p2, a2, lens2,
+                        exclude_groups=None) -> Dict:
         """Enqueue one packed batch; returns without waiting for the
-        device. The summary's device->host copy is queued behind it."""
+        device. The summary's device->host copy is queued behind it.
+        exclude_groups: optional host [B] clade per read (set_exclusion)."""
         qlen = self.pipeline.max_query_len
         fused = torch.from_numpy(fuse_host_inputs(p1, a1, lens1,
                                                   p2, a2, lens2))
         cuda = self.device.type == "cuda"
+        eg = None
+        if exclude_groups is not None:
+            if "target_groups" not in self.tables:
+                raise ValueError("exclude_groups given but set_exclusion "
+                                 "was not called")
+            eg = torch.from_numpy(np.asarray(exclude_groups, np.int64))
         if cuda:
             fused = fused.pin_memory().to(self.device, non_blocking=True)
+            if eg is not None:
+                eg = eg.pin_memory().to(self.device, non_blocking=True)
         p = self.sketch_params
         out = query_batch(
             *unfuse_device_inputs(fused, qlen), self.tables,
@@ -224,7 +308,8 @@ class QueryEngine:
             insert_size_max=self.classify.insert_size_max,
             hits_min=self.hits_min,
             hits_diff_fraction=self.classify.hits_diff_fraction,
-            highest_rank=self.highest_rank)
+            highest_rank=self.highest_rank, exclude_groups=eg,
+            target_window_k=self.target_window_k)
         summary = torch.stack([out["best"], out["best_rank"],
                                out["match_total"], out["match_overflow"]])
         if cuda:
@@ -248,3 +333,14 @@ class QueryEngine:
 
 def _rank_code(rank) -> int:
     return rank if isinstance(rank, int) else rank_from_name(rank)
+
+
+def encode_read_into(buf_codes: np.ndarray, buf_lens: np.ndarray, row: int,
+                     data: str, max_len: int):
+    """Encode one read into a host batch buffer row (truncating at
+    max_len); the rest of the row is ambiguous padding."""
+    codes = encode.np_encode_bytes(
+        np.frombuffer(data[:max_len].encode(), dtype=np.uint8))
+    buf_codes[row, :len(codes)] = codes
+    buf_codes[row, len(codes):] = encode.AMBIG_CODE
+    buf_lens[row] = len(codes)

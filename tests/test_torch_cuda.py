@@ -1,5 +1,6 @@
-"""The CUDA sketch kernel (metacache_tpu_torch/csrc/sketch.cu) against its
-plain PyTorch version on the card, and the engine on the card against the
+"""The CUDA kernels (metacache_tpu_torch/csrc/sketch.cu, csrc/gather.cu)
+against their plain PyTorch versions on the card, and the engine on the
+card (with and without clade exclusion and window hit counts) against the
 engine on the CPU. Needs a CUDA card and nvcc; skips without a card.
 Tolerance: bit equality.
 
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from metacache_tpu_torch.ops import encode, sketch_cuda
+from metacache_tpu_torch.ops import encode, gather_cuda, sketch_cuda
+from metacache_tpu_torch.ops.gather import gather_rows_reference
 from metacache_tpu_torch.ops.sketch import sketch_packed_reference
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +56,72 @@ def test_kernel_matches_plain(dev, B, L, k, s):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("s", [65, 80, 256])
+def test_kernel_matches_plain_large_sketch(dev, s):
+    """Sketch sizes over 64 (the build's WindowBatcher path) run the
+    kernel's 256-entry instantiation."""
+    p, a, lens = reads(s, 512, 128)
+    args = [torch.from_numpy(x).to(dev) for x in (p, a, lens)]
+    kw = dict(k=16, sketch_size=s, window_size=128, starts=(0,))
+    got = sketch_cuda.sketch_packed(*args, **kw)
+    assert torch.equal(got, sketch_packed_reference(*args, **kw))
+    with pytest.raises(ValueError):
+        sketch_cuda.sketch_packed(*args, k=16, sketch_size=257,
+                                  window_size=128, starts=(0,))
+
+
+def gather_case(dev, seed, B, L, N, dtype, full=False):
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    table = rng.integers(info.min, info.max, N, dtype=dtype)
+    idx = rng.integers(0, N, (B, L))
+    n_valid = np.full(B, L) if full else rng.integers(0, L + 1, B)
+    if not full and B > 2:
+        n_valid[:2] = [0, L]
+        idx[np.arange(L)[None, :] >= n_valid[:, None]] = -5   # never read
+    return [torch.from_numpy(x).to(dev) for x in (table, idx, n_valid)]
+
+
+@pytest.mark.parametrize("B,L,N,dtype,full", [
+    (2048, 128, 1 << 20, np.int32, True),       # the probe k1's shapes
+    (1007, 256, 1 << 16, np.int64, False),
+    (1, 1, 1, np.int64, True),                  # a one-word table
+    (64, 7, 1, np.int32, False),
+    (5, 256, 100, np.int64, False)])
+def test_gather_kernel_matches_plain(dev, B, L, N, dtype, full):
+    table, idx, n_valid = gather_case(dev, B + L, B, L, N, dtype, full)
+    pad = int(np.iinfo(dtype).max)
+    before = gather_cuda.launches
+    got = gather_cuda.gather_rows(table, idx, n_valid, pad)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches == before + 1
+    want = gather_rows_reference(table, idx, n_valid, pad)
+    assert got.dtype == table.dtype and torch.equal(got, want)
+
+
+def test_gather_kernel_rows_with_nothing_valid(dev):
+    table, idx, n_valid = gather_case(dev, 3, 300, 64, 1000, np.int64)
+    n_valid.zero_()
+    got = gather_cuda.gather_rows(table, idx, n_valid, -7)
+    assert (got == -7).all()
+
+
+def test_gather_kernel_rejects_bad_inputs(dev):
+    table, idx, n_valid = gather_case(dev, 4, 16, 8, 100, np.int64)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows(table.float(), idx, n_valid, 0)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows(table, idx.int(), n_valid, 0)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows(table, idx[:, ::2], n_valid, 0)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows(table, idx, n_valid[:-1], 0)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows(table.int(), idx, n_valid, 2**40)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows(table, idx.cpu(), n_valid, 0)
+
+
 def test_kernel_all_ambiguous_and_empty(dev):
     B, L = 64, 128
     p, a, lens = reads(1, B, L)
@@ -77,8 +145,11 @@ def test_kernel_rejects_bad_inputs(dev):
                                   window_size=128, starts=(0,))
 
 
-def test_engine_cuda_matches_cpu(dev, tmp_path):
+@pytest.mark.parametrize("options", [False, True],
+                         ids=["plain", "exclusion-window-hits"])
+def test_engine_cuda_matches_cpu(dev, tmp_path, options):
     from metacache_tpu.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu.db.taxonomy import Rank
     from metacache_tpu_torch.db.build import (BuildOptions,
                                               build_database_shards)
     from metacache_tpu_torch.query.engine import QueryEngine
@@ -111,10 +182,22 @@ def test_engine_cuda_matches_cpu(dev, tmp_path):
         encode_read_into(c1, l1, i, g[p:p + 100], 128)
         encode_read_into(c2, l2, i, g[p + 180:p + 280], 128)
     classify = ClassifyParams(max_candidates=3)
-    res = [QueryEngine(db, classify, pipeline, device=d).classify_batch(
-        c1, l1, c2, l2, 200) for d in (dev, torch.device("cpu"))]
-    for f in ("best", "best_rank", "match_total", "match_overflow",
-              "cand_tax", "cand_hits", "cand_beg", "cand_end", "cand_tgt"):
+    groups = None
+    if options:
+        groups = np.zeros(256, np.int64)
+        groups[:200] = db.target_taxon_node[rng.integers(0, 6, 200)]
+    res = []
+    for d in (dev, torch.device("cpu")):
+        eng = QueryEngine(db, classify, pipeline, device=d,
+                          target_window_k=16 if options else 0)
+        if options:     # the sequence rank: each read excludes one genome
+            eng.set_exclusion(Rank.SEQUENCE)
+        res.append(eng.classify_batch(c1, l1, c2, l2, 200,
+                                      exclude_groups=groups))
+    fields = ["best", "best_rank", "match_total", "match_overflow",
+              "cand_tax", "cand_hits", "cand_beg", "cand_end", "cand_tgt"]
+    for f in fields + (["target_window_hits"] if options else []):
         np.testing.assert_array_equal(getattr(res[0], f), getattr(res[1], f),
                                       err_msg=f)
-    assert os.path.exists(sketch_cuda.library_path())
+    assert os.path.exists(sketch_cuda.LIBRARY.path())
+    assert os.path.exists(gather_cuda.LIBRARY.path())

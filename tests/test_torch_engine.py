@@ -85,6 +85,64 @@ def test_engine_matches_jax(world, lowest, lmax, paired):
         assert (got.match_overflow[:n] > 0).sum() > 10
 
 
+@pytest.mark.parametrize("rank", ["species", "genus"])
+@pytest.mark.parametrize("lmax", [64, 512])
+def test_engine_with_exclusion_matches_jax(world, rank, lmax):
+    """Clade exclusion: each read excludes the clade (on `rank`) of a
+    target drawn for it, or nothing."""
+    db, reads = world
+    classify = ClassifyParams(lowest_rank="species", max_candidates=3)
+    pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
+                                   max_locations_per_query=lmax)
+    rcode = getattr(Rank, rank.upper())
+    eng = teng.QueryEngine(db, classify, pipeline, device=torch.device("cpu"))
+    jeng = JaxEngine(db, classify, pipeline)
+    eng.set_exclusion(rcode)
+    jeng.set_exclusion(rcode)
+    rng = np.random.default_rng(lmax)
+    nodes = db.target_taxon_node[rng.integers(0, db.target_count, 128)]
+    nodes[::5] = 0
+    groups = np.array([eng.exclusion_group_of(int(x)) for x in nodes])
+    assert groups.tolist() == [jeng.exclusion_group_of(int(x)) for x in nodes]
+    inputs = batch(reads, eng, True)
+    n = len(reads)
+    want = jeng.classify_batch(*inputs, n,
+                               exclude_groups=groups.astype(np.int32))
+    got = eng.classify_batch(*inputs, n, exclude_groups=groups)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f)[:n],
+                                      np.asarray(getattr(want, f))[:n],
+                                      err_msg=f)
+    # exclusion changed results against a run without it
+    plain = teng.QueryEngine(db, classify, pipeline).classify_batch(*inputs, n)
+    assert (plain.best[:n] != got.best[:n]).sum() > 10
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_engine_target_window_hits_matches_jax(world, paired):
+    """-hits-per-seq: per-candidate window hit counts, K = 16. No match
+    list fills all lmax slots here: on a full list the JAX engine counts
+    one too many in the last (target, window) run (see
+    test_torch_ops.py::test_target_window_hits_on_full_rows)."""
+    db, reads = world
+    classify = ClassifyParams(lowest_rank="sequence", max_candidates=3)
+    pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
+                                   max_locations_per_query=512)
+    eng = teng.QueryEngine(db, classify, pipeline, target_window_k=16)
+    inputs = batch(reads, eng, paired)
+    n = len(reads)
+    want = JaxEngine(db, classify, pipeline,
+                     target_window_k=16).classify_batch(*inputs, n)
+    got = eng.classify_batch(*inputs, n)
+    for f in FIELDS + ("target_window_hits",):
+        np.testing.assert_array_equal(getattr(got, f)[:n],
+                                      np.asarray(getattr(want, f))[:n],
+                                      err_msg=f)
+    assert got.target_window_hits.shape == (128, 3, 16)
+    assert got.target_window_hits[:n].max() >= 1
+    assert (got.match_total[:n] < 512).all()
+
+
 def test_dispatch_window_equals_single_batches(world):
     """materialize_many over several dispatched batches gives what each
     batch gives alone."""

@@ -15,14 +15,18 @@ from metacache_tpu.ops import hashes as jhashes
 from metacache_tpu.ops import lookup as jlookup
 from metacache_tpu.ops import sketch as jsketch
 from metacache_tpu.ops.sketch_pallas import sketch_packed_pallas
-from metacache_tpu.query.engine import encode_read_into
+from metacache_tpu.query import engine as jengine
+from metacache_tpu.query.engine import encode_read_into, local_candidates
 from metacache_tpu_torch.ops import candidates as tcand
 from metacache_tpu_torch.ops import classify_op as tclassify
 from metacache_tpu_torch.ops import encode as tencode
+from metacache_tpu_torch.ops import gather as tgather
+from metacache_tpu_torch.ops import gather_cuda
 from metacache_tpu_torch.ops import hashes as thashes
 from metacache_tpu_torch.ops import lookup as tlookup
 from metacache_tpu_torch.ops import sketch as tsketch
 from metacache_tpu_torch.ops import sketch_cuda
+from metacache_tpu_torch.query import engine as teng
 from tests.test_lookup import make_table
 from tests.test_taxonomy_classify import make_taxonomy
 
@@ -215,6 +219,128 @@ def test_lookup_matches_jax(lmax):
         assert (got[3].numpy() > 0).any()
 
 
+# --------------------------------------------------------------- gather
+@pytest.mark.parametrize("B,L,N", [(64, 128, 1 << 12), (7, 5, 1)])
+def test_gather_rows_reference_full_rows_is_table_idx(B, L, N):
+    """Every row full: the function of the Pallas probe k1, table[idx]."""
+    rng = np.random.default_rng(B + N)
+    table = rng.integers(-2**31, 2**31, N).astype(np.int32)
+    idx = rng.integers(0, N, (B, L))
+    got = tgather.gather_rows_reference(torch.from_numpy(table), t64(idx),
+                                        t64(np.full(B, L)), -1)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), table[idx])
+
+
+def test_gather_rows_reference_partial_rows():
+    """Slots at or past n_valid[b] are pad, and their indices (here out of
+    range) are never read; the wrapper takes the plain version on the CPU
+    without counting a launch."""
+    rng = np.random.default_rng(9)
+    B, L, N = 33, 17, 1000
+    table = rng.integers(0, 2**62, N).astype(np.int64)
+    idx = rng.integers(0, N, (B, L))
+    n_valid = rng.integers(0, L + 1, B)
+    n_valid[:2] = [0, L]
+    valid = np.arange(L)[None, :] < n_valid[:, None]
+    idx[~valid] = 10**9
+    pad = int(np.iinfo(np.int64).max)
+    want = np.where(valid, table[np.where(valid, idx, 0)], pad)
+    before = gather_cuda.launches
+    for fn in (tgather.gather_rows_reference, gather_cuda.gather_rows):
+        got = fn(torch.from_numpy(table), t64(idx), t64(n_valid), pad)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert gather_cuda.launches == before
+
+
+def _exclusion_case(seed, B=24, T=12):
+    """Packed reads, a feature table built from their own features (so
+    most reads match, with several targets per read), a target -> clade
+    map on 3 clades and one clade per read (0 = none)."""
+    rng = np.random.default_rng(seed)
+    p, a, lens = make_batch(rng, B, 128, minlen=40, alphabet="ACGT" * 15 + "N")
+    z = np.zeros_like
+    starts = tuple(int(s) for s in jencode.window_starts(128, 128, 113))
+    feats = teng.compute_features(
+        *(torch.from_numpy(x) for x in (p, a, lens, z(p), z(a), z(lens))),
+        k=16, sketch_size=16, window_size=128, starts=starts).numpy()
+    pool = np.unique(feats[feats != int(FEATURE_SENTINEL)])
+    keys = np.sort(rng.choice(pool, size=len(pool) * 2 // 3, replace=False)
+                   ).astype(np.uint32)
+    sizes = rng.integers(1, 7, len(keys))
+    offsets = np.zeros(len(keys) + 1, np.int32)
+    np.cumsum(sizes, out=offsets[1:])
+    n = int(offsets[-1])
+    loc_tgt = rng.integers(0, T, n).astype(np.int32)
+    loc_win = rng.integers(0, 60, n).astype(np.int32)
+    tct = np.append(np.arange(100, 100 + T), 0).astype(np.int32)
+    groups = np.append(rng.integers(1, 4, T), 0).astype(np.int32)
+    excl = rng.integers(0, 4, B).astype(np.int32)
+    return (p, a, lens, starts, feats, keys, offsets, loc_tgt, loc_win, tct,
+            groups, excl)
+
+
+@pytest.mark.parametrize("lmax", [16, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lookup_with_exclusion_matches_jax_local_candidates(lmax, seed):
+    """Clade exclusion against JAX local_candidates: the lists are cut to
+    lmax first and then masked (an excluded location inside the cut frees
+    no slot), total / overflow count the locations before exclusion, and
+    the candidates built on the masked lists are equal."""
+    (p, a, lens, starts, feats, keys, offsets, loc_tgt, loc_win, tct,
+     groups, excl) = _exclusion_case(seed)
+    z = np.zeros_like
+    cand_w, tgt_w, win_w, total_w, over_w = (
+        local_candidates(
+            *(jnp.asarray(x) for x in (p, a, lens, z(p), z(a), z(lens),
+                                       keys, offsets, loc_tgt, loc_win, tct,
+                                       excl, groups)),
+            None, None, k=16, sketch_size=16, window_size=128,
+            window_stride=113, starts=starts, lmax=lmax, max_candidates=4,
+            insert_size_max=0, search_steps=None, use_pallas_sketch=False,
+            win_bits=0))
+    locs = (loc_tgt.astype(np.int64) << 32) | loc_win
+    tgt, win, total, over = tlookup.lookup_matches(
+        t64(feats), t64(keys), t64(offsets), torch.from_numpy(locs), lmax,
+        exclude_groups=t64(excl), target_groups=t64(groups))
+    for g, w in ((tgt, tgt_w), (win, win_w), (total, total_w),
+                 (over, over_w)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    num_windows = t64(2 + lens.astype(np.int64) // 113)
+    cand = tcand.generate_candidates(tgt, win, num_windows, t64(tct), 4)
+    for key in ("tax", "hits", "beg", "end", "tgt"):
+        np.testing.assert_array_equal(cand[key].numpy(),
+                                      np.asarray(cand_w[key]), err_msg=key)
+    kept = (tgt.numpy() != TARGET_SENTINEL).sum(axis=1)
+    # exclusion emptied slots inside the cut, and lists were cut
+    assert (kept < total.numpy()).any()
+    if lmax == 16:
+        assert ((kept < lmax) & (over.numpy() > 0)).any()
+
+
+def test_excluded_location_frees_no_slot():
+    """Feature 1 has 3 locations in the read's own clade, feature 2 one
+    elsewhere; at lmax 3 the cut keeps feature 1's three, which exclusion
+    then removes: the list is empty, total 3, overflow 1 (JAX agrees)."""
+    keys = np.array([5, 9], np.uint32)
+    offsets = np.array([0, 3, 4], np.int32)
+    loc_tgt = np.array([0, 0, 1, 2], np.int32)
+    loc_win = np.array([4, 7, 1, 3], np.int32)
+    groups = np.array([1, 1, 2, 0], np.int32)
+    feats = np.array([[5, 9]], np.uint32)
+    locs = (loc_tgt.astype(np.int64) << 32) | loc_win
+    tgt, win, total, over = tlookup.lookup_matches(
+        t64(feats), t64(keys), t64(offsets), torch.from_numpy(locs), 3,
+        exclude_groups=t64([1]), target_groups=t64(groups))
+    assert (tgt.numpy() == TARGET_SENTINEL).all()
+    assert (int(total[0]), int(over[0])) == (3, 1)
+    jt, jw, jtot, jover = jlookup.lookup_matches(
+        jnp.asarray(feats), jnp.asarray(keys), jnp.asarray(offsets),
+        jnp.asarray(loc_tgt), jnp.asarray(loc_win), 3)
+    assert (int(jtot[0]), int(jover[0])) == (3, 1)
+    assert int(groups[np.asarray(jt)[0]].min()) == 1  # all in the clade
+
+
 # ------------------------------------------------------------ candidates
 @pytest.mark.parametrize("seed", range(4))
 def test_generate_candidates_matches_jax(seed):
@@ -240,6 +366,73 @@ def test_generate_candidates_matches_jax(seed):
             np.testing.assert_array_equal(got[key].numpy(),
                                           np.asarray(want[key]),
                                           err_msg=key)
+
+
+@pytest.mark.parametrize("K", [4, 16])
+@pytest.mark.parametrize("seed", range(3))
+def test_target_window_hits_matches_jax(seed, K):
+    """-hits-per-seq window hit counts per candidate, on match lists with
+    repeated (target, window) pairs."""
+    rng = np.random.default_rng(50 + seed)
+    B, L, nt = 24, 64, 5
+    tgt = np.full((B, L), TARGET_SENTINEL, np.int32)
+    win = np.full((B, L), 2**31 - 1, np.int32)
+    for b in range(B):
+        n = int(rng.integers(0, L + 1))
+        ml = sorted(zip(rng.integers(0, nt, n).tolist(),
+                        rng.integers(0, 12, n).tolist()))
+        for j, (t, w) in enumerate(ml):
+            tgt[b, j], win[b, j] = t, w
+    nw = rng.integers(1, 8, B).astype(np.int32)
+    tmap = np.append(np.arange(100, 100 + nt), 0).astype(np.int32)
+    cj = jcand.generate_candidates(tgt, win, nw, tmap, 3, win_bits=0)
+    want = np.asarray(jengine.target_window_hits(
+        cj, jnp.asarray(tgt), jnp.asarray(win), K))
+    ct = tcand.generate_candidates(t64(tgt), t64(win), t64(nw), t64(tmap), 3)
+    got = teng.target_window_hits(ct, t64(tgt), t64(win), K)
+    assert got.shape == (B, 3, K)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.max() > 1
+
+
+def test_target_window_hits_on_full_rows():
+    """Match lists that fill every slot (no pad at the row's end): the port
+    counts each (target, window) exactly, as a numpy count does. The JAX
+    function over-counts the row's last run by one there: its unrolled
+    binary search (ops/candidates.py::_lower_bound_pairs) runs past the
+    converged bound L to L + 1. Elsewhere the two agree."""
+    rng = np.random.default_rng(77)
+    B, L, nt, K = 16, 32, 3, 8
+    tgt = np.zeros((B, L), np.int32)
+    win = np.zeros((B, L), np.int32)
+    for b in range(B):
+        ml = sorted(zip(rng.integers(0, nt, L).tolist(),
+                        rng.integers(0, 6, L).tolist()))
+        tgt[b], win[b] = zip(*ml)
+    nw = np.full(B, 8, np.int32)
+    tmap = np.append(np.arange(100, 100 + nt), 0).astype(np.int32)
+    ct = tcand.generate_candidates(t64(tgt), t64(win), t64(nw), t64(tmap), 3)
+    got = teng.target_window_hits(ct, t64(tgt), t64(win), K).numpy()
+    ctg, cbeg, cend = (ct[k].numpy() for k in ("tgt", "beg", "end"))
+    want = np.zeros_like(got)
+    for b in range(B):
+        for c in range(3):
+            for k in range(K):
+                w = cbeg[b, c] + k
+                if w <= cend[b, c]:
+                    want[b, c, k] = ((tgt[b] == ctg[b, c])
+                                     & (win[b] == w)).sum()
+    np.testing.assert_array_equal(got, want)
+    cj = jcand.generate_candidates(tgt, win, nw, tmap, 3, win_bits=0)
+    jax_counts = np.asarray(jengine.target_window_hits(
+        cj, jnp.asarray(tgt), jnp.asarray(win), K))
+    diff = jax_counts - want
+    last = np.zeros_like(diff, bool)   # the query of each row's last pair
+    for b in range(B):
+        last[b] = ((ctg[b, :, None] == tgt[b, -1])
+                   & (cbeg[b, :, None] + np.arange(K) == win[b, -1]))
+    assert (diff[last] == 1).all() and (diff[~last] == 0).all()
+    assert last.any()
 
 
 # -------------------------------------------------------------- classify
