@@ -35,6 +35,18 @@ Phases, each printed on its own line; any failure exits non-zero:
      the engine is reused and the first line's output equals the
      non-interactive run's.
  10. info: statistics and `rank species`.
+ 11. mesh: config-2 built in 4 shards, every read queried with -mesh on
+     cuda (the shards on the card, or spread over the cards if there
+     are several): both kernels ran, every mapping line equals the fused
+     query's, classified fraction as in 3.
+ 12. distributed: two ranks of one process group (MC_* variables, both
+     on the one card, so gloo), each through this script's rank worker
+     (`--rank-worker`): `build -num-shards 4` gives the single-process
+     shards array for array; `query -mesh` on 262,144 reads gives the
+     fused query's first lines on rank 0; both kernels ran in each rank.
+ 13. realistic_mesh: the realistic world in 2 shards with -mesh; the
+     first 8,192 pairs on the CPU give the same lines; how many lines
+     differ from the fused query's (per-shard truncation) is printed.
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. Then the kernels' JSON line and, last,
 the device JSON line.
@@ -74,6 +86,9 @@ ALIGN_READS = 4096
 MODIFY_ADDED = 500         # genomes that `modify` adds
 MERGE_READS = 131072
 INTERACTIVE_READS = 65536
+MESH_SHARDS = 4            # config-2's -mesh and 2-rank shard count
+DIST_READS = 262144        # reads of the 2-rank -mesh query
+RANK_TIMEOUT = 600         # seconds for each 2-rank launch
 
 #: launches of each kernel, summed over the paths this run drove
 LAUNCHES = {"sketch_packed": 0, "gather_rows": 0}
@@ -422,6 +437,7 @@ def phase_realistic():
         peak_device_bytes=peak, sketch_launches=counts["sketch_packed"],
         gather_launches=counts["gather_rows"])
     compare_cpu(db, reads, flags, 8192, out, "realistic")
+    return dict(dir=big, reads=reads, flags=flags, out=out)
 
 
 def phase_evaluation(c2):
@@ -629,6 +645,193 @@ def phase_info(c2):
             lines=len(out.splitlines()), wall_seconds=f"{wall:.2f}")
 
 
+def placement(stderr):
+    """The -mesh placement line the query prints on stderr."""
+    lines = [ln for ln in stderr.splitlines() if ln.startswith("-mesh: ")]
+    check(len(lines) == 1 and "falling back" not in lines[0],
+          f"-mesh did not place its shards: {stderr[-1000:]}")
+    return lines[0][len("-mesh: "):].replace(", ", ";").replace(" ", "_")
+
+
+def mesh_query(path, db, data, out):
+    """A -mesh query driven through the CLI -> (mapping lines, wall
+    seconds, counts, peak device bytes, placement)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _, err, wall, counts = driven(
+        path, ("sketch_packed", "gather_rows"),
+        ["query", db] + data["reads"] + data["flags"] + ["-mesh", "-out",
+                                                         out])
+    return (mapping_lines(out), wall, counts,
+            torch.cuda.max_memory_allocated(), placement(err))
+
+
+def phase_mesh(c2):
+    """Config-2 in MESH_SHARDS shards, every read queried with -mesh:
+    the shards on the card(s), sketched once per card, merged; the lines
+    equal the fused query's (config-2 never truncates a match list)."""
+    db = os.path.join(c2["dir"], f"db{MESH_SHARDS}")
+    build_s = port_cli(["build", db, os.path.join(c2["dir"], "genomes.fa"),
+                        "-taxonomy", os.path.join(c2["dir"], "tax"),
+                        "-num-shards", str(MESH_SHARDS)],
+                       os.path.join(WORK, "mesh_build.log"))
+    out = os.path.join(WORK, "c2_mesh_gpu.txt")
+    lines, wall, counts, peak, where = mesh_query("mesh", db, c2, out)
+    fused = mapping_lines(c2["out"])
+    same = sum(a == b for a, b in zip(lines, fused))
+    frac = classified_fraction(lines)
+    qs = classify_seconds(out)
+    say("mesh", shards=MESH_SHARDS, reads=len(lines),
+        build_seconds=f"{build_s:.2f}", query_wall_seconds=f"{wall:.2f}",
+        classify_seconds=f"{qs:.3f}",
+        reads_per_s_classify=f"{len(lines) / qs:.1f}",
+        classified_frac=f"{frac:.4f}",
+        lines_equal_fused=f"{same}/{len(fused)}", peak_device_bytes=peak,
+        placement=where, sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    check(len(lines) == len(fused) and same == len(fused),
+          "mesh: mapping lines differ from the fused query's")
+    check_fraction("mesh", frac)
+    return db
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(tag, args):
+    """The port's CLI as ranks 0 and 1 of one process group (the MC_*
+    launch), each through this script's rank worker. Both are killed and
+    the phase fails past RANK_TIMEOUT seconds or on a non-zero exit.
+    Returns (each rank's kernel launch counts, wall seconds, backend)."""
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for r in range(2):
+            env = dict(os.environ, MC_COORDINATOR=f"127.0.0.1:{port}",
+                       MC_NUM_PROCS="2", MC_PROC_ID=str(r))
+            logs.append(open(os.path.join(WORK, f"{tag}_rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 os.path.join(WORK, f"{tag}_rank{r}.json")] + args
+                + ["-device", DEVICE], cwd=REPO, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, t0 + RANK_TIMEOUT - time.time()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{tag}: rank {r} exceeded {RANK_TIMEOUT} "
+                                   "s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.time() - t0
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{tag}: rank {r} exited {p.returncode}, "
+                                 f"see {tag}_rank{r}.log")
+    counts = []
+    for r in range(2):
+        with open(os.path.join(WORK, f"{tag}_rank{r}.json")) as f:
+            counts.append(json.load(f))
+    with open(os.path.join(WORK, f"{tag}_rank0.log")) as f:
+        backend = [ln.split("backend ")[1].split()[0] for ln in f
+                   if ln.startswith("[distributed]")]
+    check(backend == ["gloo"], f"{tag}: backend {backend}, expected gloo "
+                               "(two ranks share one card)")
+    return counts, wall, backend[0]
+
+
+def rank_worker(counts_path, args):
+    """One rank of launch_ranks: the CLI in this process, then its
+    kernel launch counts to counts_path."""
+    sys.path.insert(0, REPO)
+    from metacache_tpu_torch import cli
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    rc = cli.main(args)
+    with open(counts_path, "w") as f:
+        json.dump({name: m.launches for name, m in mods.items()}, f)
+    return rc
+
+
+def phase_distributed(c2, mesh_db):
+    """Two ranks on the one card over gloo: (a) build the MESH_SHARDS
+    shards, rank r writing s % 2 == r, equal to the single-process
+    build's; (b) query -mesh, rank 0's lines equal the fused query's."""
+    import numpy as np
+    from metacache_tpu.db.database import shard_path
+    db = os.path.join(c2["dir"], "dist_db")
+    _, build_s, backend = launch_ranks("dist_build", [
+        "build", db, os.path.join(c2["dir"], "genomes.fa"), "-taxonomy",
+        os.path.join(c2["dir"], "tax"), "-num-shards", str(MESH_SHARDS)])
+    for s in range(MESH_SHARDS):
+        got = npz_arrays(shard_path(db, s))
+        want = npz_arrays(shard_path(mesh_db, s))
+        check(sorted(got) == sorted(want), f"distributed: shard {s} arrays")
+        for k in want:
+            check(got[k].dtype == want[k].dtype
+                  and np.array_equal(got[k], want[k]),
+                  f"distributed: shard {s} array {k} differs from the "
+                  "single-process build's")
+        del got, want
+    out = os.path.join(WORK, "c2_dist_gpu.txt")
+    counts, query_s, _ = launch_ranks("dist_query", [
+        "query", db] + c2["reads"] + c2["flags"] + [
+        "-mesh", "-query-limit", str(DIST_READS), "-out", out])
+    for r, cnt in enumerate(counts):
+        for name in ("sketch_packed", "gather_rows"):
+            LAUNCHES[name] += cnt[name]
+            check_launched(f"distributed rank {r}", name, cnt[name])
+    lines = mapping_lines(out)
+    same = sum(a == b for a, b in zip(lines, mapping_lines(c2["out"])))
+    say("distributed", ranks=2, backend=backend, shards=MESH_SHARDS,
+        build_wall_seconds=f"{build_s:.2f}", shards_equal_single="yes",
+        query_wall_seconds=f"{query_s:.2f}", reads=len(lines),
+        classify_seconds=f"{classify_seconds(out):.3f}",
+        lines_equal_fused=f"{same}/{DIST_READS}",
+        sketch_launches="/".join(str(c["sketch_packed"]) for c in counts),
+        gather_launches="/".join(str(c["gather_rows"]) for c in counts))
+    check(len(lines) == DIST_READS and same == DIST_READS,
+          "distributed: rank 0's lines differ from the fused query's")
+
+
+def phase_realistic_mesh(big):
+    """The realistic world in 2 shards, queried with -mesh; cuda equals
+    cpu on the first 8,192 pairs. Each shard truncates its own match
+    list, so lines may differ from the fused query's on the reads that
+    overflow: that count is printed, not checked."""
+    db = os.path.join(big["dir"], "db2")
+    build_s = port_cli(["build", db, os.path.join(big["dir"], "genomes.fa"),
+                        "-taxonomy", os.path.join(big["dir"], "tax"),
+                        "-num-shards", "2"],
+                       os.path.join(WORK, "realistic_mesh_build.log"))
+    out = os.path.join(WORK, "realistic_mesh_gpu.txt")
+    lines, wall, counts, peak, where = mesh_query("realistic_mesh", db, big,
+                                                  out)
+    fused = mapping_lines(big["out"])
+    check(len(lines) == len(fused),
+          f"realistic_mesh: {len(lines)} mapping lines")
+    differ = sum(a != b for a, b in zip(lines, fused))
+    qs = classify_seconds(out)
+    say("realistic_mesh", pairs=len(lines), build_seconds=f"{build_s:.2f}",
+        query_wall_seconds=f"{wall:.2f}", classify_seconds=f"{qs:.3f}",
+        pairs_per_s_classify=f"{len(lines) / qs:.1f}",
+        lines_differing_from_fused=differ, peak_device_bytes=peak,
+        placement=where, sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    compare_cpu(db, big["reads"], big["flags"] + ["-mesh"], 8192, out,
+                "realistic_mesh")
+
+
 def use_repo_tests_package():
     """bench.py's world generators import `tests.util_mockdata`. Bind the
     name `tests` to this checkout's test directory, even where an
@@ -709,13 +912,16 @@ def main() -> int:
         sketch = phase_kernel(dev)
         gather = phase_gather(dev)
         c2 = phase_config2()
-        phase_realistic()
+        big = phase_realistic()
         phase_evaluation(c2)
         phase_options(c2)
         db_a, fb = phase_modify(c2)
         phase_merge(c2, db_a, fb)
         phase_interactive(c2)
         phase_info(c2)
+        mesh_db = phase_mesh(c2)
+        phase_distributed(c2, mesh_db)
+        phase_realistic_mesh(big)
         say("done", seconds=f"{time.time() - t0:.1f}")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -728,4 +934,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -5,6 +5,12 @@ Usage: python -m metacache_tpu_torch.cli <mode> ... [-device cuda|cpu]
 `build`, `modify`, `query`, `info` and `merge` run on the port (their
 device work on -device, default cuda); `help` and `annotate` are
 host-only and dispatch to the JAX package's JAX-free modules.
+
+Multi-process launch (the reference's mpirun): start P processes with
+MC_COORDINATOR=<host:port> MC_NUM_PROCS=P MC_PROC_ID=<r>; the process
+group starts here, before any mode runs (parallel/distributed.py). Then
+`build` writes the shards s % P == r on rank r and `query -mesh` serves
+them there.
 """
 from __future__ import annotations
 
@@ -24,32 +30,30 @@ def main(argv=None) -> int:
               "usage: python -m metacache_tpu_torch.cli <mode> ... "
               "[-device cuda|cpu]", file=sys.stderr)
         return 1
+    from .parallel.distributed import maybe_initialize
+    maybe_initialize(args.get("device", "cuda"))
     mode = args.positionals[0]
-    try:
-        if mode == "build":
-            from .modes.build import main_mode_build
-            return main_mode_build(args)
-        if mode == "modify":
-            from .modes.modify import main_mode_modify
-            return main_mode_modify(args)
-        if mode == "query":
-            from .modes.query import main_mode_query
-            return main_mode_query(args)
-        if mode == "info":
-            from .modes.info import main_mode_info
-            return main_mode_info(args)
-        if mode == "merge":
-            from .modes.merge import main_mode_merge
-            return main_mode_merge(args)
-        if mode == "help":
-            from metacache_tpu.modes.help import main_mode_help
-            return main_mode_help(args)
-        if mode == "annotate":
-            from metacache_tpu.modes.annotate import main_mode_annotate
-            return main_mode_annotate(args)
-    except NotImplementedError as e:
-        print(f"not yet ported: {e}", file=sys.stderr)
-        return 1
+    if mode == "build":
+        from .modes.build import main_mode_build
+        return main_mode_build(args)
+    if mode == "modify":
+        from .modes.modify import main_mode_modify
+        return main_mode_modify(args)
+    if mode == "query":
+        from .modes.query import main_mode_query
+        return main_mode_query(args)
+    if mode == "info":
+        from .modes.info import main_mode_info
+        return main_mode_info(args)
+    if mode == "merge":
+        from .modes.merge import main_mode_merge
+        return main_mode_merge(args)
+    if mode == "help":
+        from metacache_tpu.modes.help import main_mode_help
+        return main_mode_help(args)
+    if mode == "annotate":
+        from metacache_tpu.modes.annotate import main_mode_annotate
+        return main_mode_annotate(args)
     print(f"unknown mode '{mode}'; available: {', '.join(MODES)}",
           file=sys.stderr)
     return 1

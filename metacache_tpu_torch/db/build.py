@@ -237,21 +237,23 @@ def _register_targets(path: str, res, sids: List[str], taxonomy: Taxonomy,
             progress(path, tgt)
 
 
-def _sketch_natively(path: str, p: SketchParams, sorters: List,
+def _sketch_natively(path: str, p: SketchParams, num_shards: int,
+                     sorters: Dict[int, ChunkedTripleSorter],
                      taxonomy: Taxonomy, target_nodes: List[int],
                      seen_names: set, seq2taxid: Dict[str, int], progress,
                      spill_dir) -> bool:
-    """Native parse + sketch of one file in ONE pass for every shard: in
-    RAM, or spilling feature-sorted per-shard chunk files for a large one
-    (spill_dir() makes the directory). Returns False, having added
-    nothing, when the file holds records the native pass cannot number."""
+    """Native parse + sketch of one file in ONE pass for every built
+    shard (the keys of `sorters`): in RAM, or spilling feature-sorted
+    per-shard chunk files for a large one (spill_dir() makes the
+    directory). Returns False, having added nothing, when the file holds
+    records the native pass cannot number."""
     t0 = len(target_nodes)
     spill = os.path.getsize(path) >= SPILL_MIN_BYTES
     if spill:
         res = native.sketch_file_spill(
             path, p.kmer_size, p.sketch_size, p.window_size,
-            p.window_stride, t0=t0, num_shards=len(sorters),
-            shard_ids=range(len(sorters)), chunk_triples=CHUNK_TRIPLES,
+            p.window_stride, t0=t0, num_shards=num_shards,
+            shard_ids=list(sorters), chunk_triples=CHUNK_TRIPLES,
             prefix=os.path.join(spill_dir(), f"t{t0}"))
     else:
         res = native.sketch_file(path, p.kmer_size, p.sketch_size,
@@ -265,15 +267,15 @@ def _sketch_natively(path: str, p: SketchParams, sorters: List,
                 os.unlink(cpath)
         return False
     if spill:
-        for s, sorter in enumerate(sorters):
+        for s, sorter in sorters.items():
             mine = [(cpath, cnt) for sh, cpath, cnt in res.chunks if sh == s]
             if mine:
                 sorter.adopt_chunks(mine)
-    elif len(sorters) == 1:
+    elif num_shards == 1:
         sorters[0].add(res.feat, res.tgt, res.win)
     else:   # target t belongs to shard t % num_shards
-        owner = res.tgt % np.int32(len(sorters))
-        for s, sorter in enumerate(sorters):
+        owner = res.tgt % np.int32(num_shards)
+        for s, sorter in sorters.items():
             sel = owner == s
             if sel.any():
                 sorter.add(res.feat[sel], res.tgt[sel], res.win[sel])
@@ -288,7 +290,8 @@ def sketch_records(path: str, batcher, taxonomy: Taxonomy,
     """The WindowBatcher path for one file (the JAX build's per-record
     loop): records parsed in Python, empty records and repeated ids
     skipped, the rest numbered in order; `batcher(t)` is the batcher of
-    target t's shard."""
+    target t's shard, None for a shard that is not built (the target is
+    numbered but not sketched)."""
     for rec in sequence_io.read_sequences(path):
         sid = sequence_io.extract_accession_string(rec.header) \
             or rec.header.split(" ")[0] or rec.header
@@ -297,9 +300,12 @@ def sketch_records(path: str, batcher, taxonomy: Taxonomy,
         seen_names.add(sid)
         tgt = len(target_nodes)
         parent = resolve_parent_taxid(rec.header, seq2taxid, taxonomy)
-        codes = encode.np_encode_bytes(
-            np.frombuffer(rec.data.encode(), dtype=np.uint8))
-        windows = batcher(tgt).add_sequence(codes, tgt)
+        windows = 0
+        b = batcher(tgt)
+        if b is not None:
+            codes = encode.np_encode_bytes(
+                np.frombuffer(rec.data.encode(), dtype=np.uint8))
+            windows = b.add_sequence(codes, tgt)
         node = taxonomy.add_node(
             -(tgt + 1), parent if parent else NONE_TAXID, sid,
             Rank.SEQUENCE, source_filename=path, source_index=rec.index,
@@ -311,10 +317,15 @@ def sketch_records(path: str, batcher, taxonomy: Taxonomy,
 
 def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
                           num_shards: int = 1,
+                          shard_ids: Optional[Sequence[int]] = None,
                           progress=None) -> List[Database]:
-    """Build all shards in ONE pass over the inputs
+    """Build shards in ONE pass over the inputs
     (src/mode_build.cpp:1145-1175, :797-843). Target t belongs to shard
-    t % num_shards. Returns one Database per shard, in shard order."""
+    t % num_shards; shard_ids are the shards to build (default: all), and
+    only those get sorters and batchers. Every target is numbered either
+    way. Returns one Database per built shard, in shard_ids order."""
+    shard_ids = list(range(num_shards)) if shard_ids is None \
+        else list(shard_ids)
     p = opt.params.sketch
     if native.load_mcio() is None:
         raise RuntimeError("the native sketcher (libmcio) could not be "
@@ -329,12 +340,14 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
     files = gather_input_files(infiles)
     seq2taxid = taxonomy_io.make_sequence_to_taxon_id_map(
         SEQUENCE_ID_MAPPINGS, files)
-    sorters = [ChunkedTripleSorter(chunk_triples=CHUNK_TRIPLES)
-               for _ in range(num_shards)]
+    sorters = {s: ChunkedTripleSorter(chunk_triples=CHUNK_TRIPLES)
+               for s in shard_ids}
     batchers: Dict[int, WindowBatcher] = {}
 
-    def batcher(tgt: int) -> WindowBatcher:
+    def batcher(tgt: int) -> Optional[WindowBatcher]:
         s = tgt % num_shards
+        if s not in sorters:
+            return None
         if s not in batchers:
             batchers[s] = WindowBatcher(p, sorters[s],
                                         resolve_device(opt.device))
@@ -352,8 +365,8 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
     try:
         for path in files:
             if p.sketch_size <= NATIVE_MAX_SKETCH and _sketch_natively(
-                    path, p, sorters, taxonomy, target_nodes, seen_names,
-                    seq2taxid, progress, spill_dir):
+                    path, p, num_shards, sorters, taxonomy, target_nodes,
+                    seen_names, seq2taxid, progress, spill_dir):
                 continue
             sketch_records(path, batcher, taxonomy, target_nodes,
                            seen_names, seq2taxid, progress)
@@ -368,15 +381,15 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
                                   reset_parents=opt.reset_parents,
                                   info_level=opt.info_level)
 
-        fts = [s.finalize(opt.params.max_locations_per_feature)
-               for s in sorters]
+        fts = {s: sorter.finalize(opt.params.max_locations_per_feature)
+               for s, sorter in sorters.items()}
     finally:
         for d in spill:
             shutil.rmtree(d, ignore_errors=True)
 
     target_arr = np.array(target_nodes, dtype=np.int32)
     dbs: List[Database] = []
-    for s in range(num_shards):
+    for s in shard_ids:
         db = Database(
             sketch_params=p, query_sketch_params=p,
             max_locations_per_feature=opt.params.max_locations_per_feature,
@@ -447,13 +460,20 @@ def merge_shard_feature_counts(shard_tables: Iterable[FeatureTable]
     """Global (sorted feature keys, location counts) across shards — the
     host-side analogue of the reference's count tree merge
     (mode_build.cpp:865-1024)."""
-    keys, counts = [], []
+    keys, counts = [np.zeros(0, np.uint32)], [np.zeros(0, np.int64)]
     for ft in shard_tables:
         k, c = ft.feature_counts()
         keys.append(np.asarray(k, dtype=np.uint32))
         counts.append(np.asarray(c, dtype=np.int64))
-    if not keys:
-        return np.zeros(0, np.uint32), np.zeros(0, np.int64)
-    uniq, inv = np.unique(np.concatenate(keys), return_inverse=True)
-    sums = np.bincount(inv, weights=np.concatenate(counts)).astype(np.int64)
+    return merge_feature_count_arrays(np.concatenate(keys),
+                                      np.concatenate(counts))
+
+
+def merge_feature_count_arrays(keys: np.ndarray, counts: np.ndarray
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Concatenated (key, count) dumps -> unique sorted keys with summed
+    counts."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.bincount(inv, weights=counts,
+                       minlength=len(uniq)).astype(np.int64)
     return uniq.astype(np.uint32), sums

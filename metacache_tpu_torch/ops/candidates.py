@@ -16,6 +16,9 @@ Counterpart of metacache_tpu/ops/candidates.py::generate_candidates
 
 torch.sort has no multi-key sort, so each key tuple is packed into one
 int64.
+
+merge_candidates is the cross-shard merge of per-shard candidate lists
+(JAX _dedup_topk).
 """
 from __future__ import annotations
 
@@ -101,3 +104,43 @@ def generate_candidates(tgt: torch.Tensor, win: torch.Tensor,
         "end": torch.where(ok, win.gather(1, f_pos), 0),
         "tgt": torch.where(ok, tgt.gather(1, f_pos), int(TARGET_SENTINEL)),
     }
+
+
+def merge_candidates(cand, max_candidates: int):
+    """Merge candidate lists of several shards (JAX _dedup_topk; the
+    cross-rank re-insertion of src/querying.h:958-971).
+
+    Args:
+      cand: dict of [B, P*C] int64 tensors tax, hits, beg, end, tgt: the
+            shards' lists side by side (tax == 0 marks an empty slot).
+      max_candidates: the merged list's width.
+
+    Per taxon the candidate with max hits wins, the smallest target id on
+    ties; winners are ordered by (hits desc, target id asc) and cut to
+    max_candidates. A target's matches live on one shard and target ids
+    are global, so this order is the single engine's first-achiever order
+    and the merge is shard-count invariant. Empty slots: tax 0, tgt
+    TARGET_SENTINEL.
+    """
+    tax, hits, tgt = cand["tax"], cand["hits"], cand["tgt"]
+    key = torch.where(tax > 0, tax, _BIG32)
+    # (taxon asc, hits desc, target asc): two stable sorts, the secondary
+    # key first
+    order = tgt.sort(dim=1, stable=True).indices
+    k1 = ((key << 32) | (_M32 - hits)).gather(1, order)
+    order = order.gather(1, k1.sort(dim=1, stable=True).indices)
+    s_key = key.gather(1, order)
+    winner = torch.ones_like(s_key, dtype=torch.bool)
+    winner[:, 1:] = s_key[:, 1:] != s_key[:, :-1]
+    winner &= s_key != _BIG32
+    # (hits desc, target asc) in one word: hits < 2^32, targets < 2^31
+    s_hits, s_tgt = hits.gather(1, order), tgt.gather(1, order)
+    word = torch.where(winner, ((_M32 - s_hits) << 31) | s_tgt, _BIG64)
+    f_word, f_idx = word.sort(dim=1)
+    C = min(max_candidates, tax.shape[1])
+    ok = f_word[:, :C] != _BIG64
+    pick = order.gather(1, f_idx[:, :C])
+    out = {name: torch.where(ok, cand[name].gather(1, pick), 0)
+           for name in ("tax", "hits", "beg", "end")}
+    out["tgt"] = torch.where(ok, tgt.gather(1, pick), int(TARGET_SENTINEL))
+    return out

@@ -6,10 +6,13 @@ Per batch of packed reads:
 
   host:   fuse the six packed arrays into one buffer (one host->device copy)
   device: sketch (CUDA kernel, or its plain version on the CPU) -> lookup
-          in the CSR feature table -> contiguous-window-range candidates ->
-          ranked-LCA vote
+          in the CSR feature table -> contiguous-window-range candidates
+          (local_candidates) -> ranked-LCA vote (classify_tail)
   host:   one device->host copy of the [4, B] summary (best, best_rank,
           match total, overflow); candidate tensors only on demand.
+
+The sharded engine (parallel/sharding.py) runs the same stages, with
+local_candidates once per shard and a merge before the vote.
 
 Options of the JAX engine kept here: clade exclusion (set_exclusion: the
 matches of each read's own clade are dropped after the lookup's cut, see
@@ -67,20 +70,24 @@ def tables_from_database(db: Database, device: torch.device,
     tct = _to_device_int64(db.target_cand_tax(lowest_rank), device)
     if like is not None:
         return dict(like, target_cand_tax=tct)
+    return dict(feature_tables(db, device), target_cand_tax=tct,
+                ranked_lineage=torch.from_numpy(np.asarray(
+                    db.taxonomy.ranked_lineage, dtype=np.int64)).to(device))
+
+
+def feature_tables(db: Database, device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+    """The feature table's part of tables_from_database: keys, offsets,
+    packed locations (one shard's own, in the sharded engine)."""
     keys, offsets, loc_tgt, loc_win = db.features.device_arrays()
     locations = torch.empty(len(loc_tgt), dtype=torch.int64, device=device)
     for o in range(0, len(loc_tgt), _CHUNK):
         t = np.array(loc_tgt[o:o + _CHUNK], dtype=np.int64)
         w = np.array(loc_win[o:o + _CHUNK], dtype=np.int64)
         locations[o:o + len(t)] = torch.from_numpy((t << LOC_SHIFT) | w)
-    return {
-        "keys": _to_device_int64(keys, device),
-        "offsets": _to_device_int64(offsets, device),
-        "locations": locations,
-        "target_cand_tax": tct,
-        "ranked_lineage": torch.from_numpy(np.asarray(
-            db.taxonomy.ranked_lineage, dtype=np.int64)).to(device),
-    }
+    return {"keys": _to_device_int64(keys, device),
+            "offsets": _to_device_int64(offsets, device),
+            "locations": locations}
 
 
 def make_target_groups(db: Database, rank_code: int) -> np.ndarray:
@@ -150,20 +157,16 @@ def target_window_hits(cand: Dict[str, torch.Tensor], tgt: torch.Tensor,
     return torch.where(qwin <= cand["end"][:, :, None], counts, 0)
 
 
-def query_batch(packed1, ambig1, lens1, packed2, ambig2, lens2,
-                tables: Dict[str, torch.Tensor], *, k: int,
-                sketch_size: int, window_size: int, window_stride: int,
-                starts: Sequence[int], lmax: int, max_candidates: int,
-                insert_size_max: int, hits_min: int,
-                hits_diff_fraction: float, highest_rank: int,
-                exclude_groups: torch.Tensor = None,
-                target_window_k: int = 0) -> Dict:
-    """One batch: packed reads -> classification (the port of
-    _query_batch_device / local_candidates). With exclude_groups [B],
-    tables must hold "target_groups" (QueryEngine.set_exclusion)."""
-    features = compute_features(
-        packed1, ambig1, lens1, packed2, ambig2, lens2, k=k,
-        sketch_size=sketch_size, window_size=window_size, starts=starts)
+def local_candidates(features: torch.Tensor, lens1: torch.Tensor,
+                     lens2: torch.Tensor, tables: Dict[str, torch.Tensor],
+                     *, window_stride: int, lmax: int, max_candidates: int,
+                     insert_size_max: int,
+                     exclude_groups: torch.Tensor = None) -> Dict:
+    """The per-shard half of a batch (JAX local_candidates after the
+    sketch): lookup in one feature table -> candidates. Returns cand
+    (dict of [B, C]), the sorted match list tgt / win [B, lmax] and the
+    per-read match total / overflow [B]. With exclude_groups [B], tables
+    must hold "target_groups" (set_exclusion)."""
     tgt, win, total, overflow = lookup_matches(
         features, tables["keys"], tables["offsets"], tables["locations"],
         lmax, exclude_groups=exclude_groups,
@@ -174,14 +177,55 @@ def query_batch(packed1, ambig1, lens1, packed2, ambig2, lens2,
     num_windows = 2 + pair_len // window_stride
     cand = generate_candidates(tgt, win, num_windows,
                                tables["target_cand_tax"], max_candidates)
-    best, best_rank = classify_lca(cand["tax"], cand["hits"],
-                                   tables["ranked_lineage"], hits_min,
-                                   hits_diff_fraction, highest_rank)
-    out = {"cand": cand, "best": best, "best_rank": best_rank,
-           "match_total": total, "match_overflow": overflow}
-    if target_window_k:
-        out["target_window_hits"] = target_window_hits(cand, tgt, win,
-                                                       target_window_k)
+    return {"cand": cand, "tgt": tgt, "win": win, "total": total,
+            "overflow": overflow}
+
+
+def classify_tail(cand: Dict[str, torch.Tensor], total: torch.Tensor,
+                  overflow: torch.Tensor, ranked_lineage: torch.Tensor, *,
+                  hits_min: int, hits_diff_fraction: float,
+                  highest_rank: int) -> Dict:
+    """The classification half of a batch: the ranked-LCA vote on the
+    (merged) candidates, and the [4, B] summary (best, best_rank, match
+    total, overflow) that one device->host copy brings back."""
+    best, best_rank = classify_lca(cand["tax"], cand["hits"], ranked_lineage,
+                                   hits_min, hits_diff_fraction, highest_rank)
+    return {"cand": cand, "best": best, "best_rank": best_rank,
+            "match_total": total, "match_overflow": overflow,
+            "summary": torch.stack([best, best_rank, total, overflow])}
+
+
+def upload_batch(p1, a1, lens1, p2, a2, lens2, exclude_groups,
+                 devices: Sequence[torch.device]):
+    """The six per-batch host arrays fused into one buffer, and the
+    optional [B] exclusion groups, copied to each device (one fused
+    host->device copy per device, from pinned memory on a card) ->
+    {device: (fused, exclude_groups or None)}."""
+    fused = torch.from_numpy(fuse_host_inputs(p1, a1, lens1, p2, a2, lens2))
+    eg = None if exclude_groups is None else \
+        torch.from_numpy(np.asarray(exclude_groups, np.int64))
+    if any(d.type == "cuda" for d in devices):
+        fused = fused.pin_memory()
+        eg = None if eg is None else eg.pin_memory()
+    return {d: (fused.to(d, non_blocking=True),
+                None if eg is None else eg.to(d, non_blocking=True))
+            for d in devices}
+
+
+def fetch_summary(out: Dict) -> Dict:
+    """Queue the summary's device->host copy behind the batch without
+    waiting for it: into pinned memory, with an event recorded on the
+    summary's device that BatchResult waits for."""
+    summary = out.pop("summary")
+    if summary.device.type == "cuda":
+        host = torch.empty(summary.shape, dtype=summary.dtype,
+                           pin_memory=True)
+        host.copy_(summary, non_blocking=True)
+        with torch.cuda.device(summary.device):
+            out["_event"] = torch.cuda.Event()
+            out["_event"].record()
+        summary = host
+    out["_summary_host"] = summary
     return out
 
 
@@ -219,19 +263,15 @@ class BatchResult:
         lambda self: self._field("target_window_hits"))
 
 
-class QueryEngine:
-    """Device-resident database tables + the batch pipeline."""
+class EngineBase:
+    """What the single and the sharded engine share: the parameters of
+    the batch program and the host side of a batch (JAX EngineBase).
+    Subclasses provide set_exclusion and dispatch_packed."""
 
     def __init__(self, db: Database, classify: ClassifyParams,
-                 pipeline: QueryPipelineParams = QueryPipelineParams(),
-                 device: torch.device = torch.device("cpu"),
-                 target_window_k: int = 0,
-                 tables: Dict[str, torch.Tensor] = None):
-        """`tables`: device tables of this database for this lowest rank,
-        already uploaded (tables_from_database), to share them."""
+                 pipeline: QueryPipelineParams, target_window_k: int):
         self.db = db
         self.pipeline = pipeline
-        self.device = device
         self.target_window_k = target_window_k
         p = db.query_sketch_params
         self.sketch_params = p
@@ -242,8 +282,6 @@ class QueryEngine:
         self.starts = tuple(int(s) for s in encode.window_starts(
             pipeline.max_query_len, p.window_size, p.window_stride))
         self.lmax = pipeline.max_locations_per_query
-        self.tables = tables if tables is not None else \
-            tables_from_database(db, device, self.lowest_rank)
         self.exclude_rank = Rank.NONE
 
     def update_runtime_thresholds(self, classify: ClassifyParams):
@@ -252,13 +290,35 @@ class QueryEngine:
         self.hits_min = classify.resolved_hits_min(
             self.db.sketch_params.sketch_size)
 
-    def set_exclusion(self, rank_code: int):
-        """Enable clade exclusion on `rank_code`: per-read exclusion groups
-        (exclusion_group_of each read's ground truth) must then be passed
-        to dispatch_packed / classify_batch."""
-        self.tables = dict(self.tables, target_groups=torch.from_numpy(
-            make_target_groups(self.db, rank_code)).to(self.device))
-        self.exclude_rank = rank_code
+    def _check_exclusion(self, exclude_groups) -> None:
+        if exclude_groups is not None and self.exclude_rank == Rank.NONE:
+            raise ValueError("exclude_groups given but set_exclusion was "
+                             "not called")
+
+    def _sketch(self, fused: torch.Tensor):
+        """Unfused inputs on one device -> (features [B, NF], lens1,
+        lens2)."""
+        p = self.sketch_params
+        p1, a1, l1, p2, a2, l2 = unfuse_device_inputs(
+            fused, self.pipeline.max_query_len)
+        return compute_features(p1, a1, l1, p2, a2, l2, k=p.kmer_size,
+                                sketch_size=p.sketch_size,
+                                window_size=p.window_size,
+                                starts=self.starts), l1, l2
+
+    def _candidates(self, features, lens1, lens2, tables, exclude_groups):
+        return local_candidates(
+            features, lens1, lens2, tables,
+            window_stride=self.sketch_params.window_stride, lmax=self.lmax,
+            max_candidates=self.classify.max_candidates,
+            insert_size_max=self.classify.insert_size_max,
+            exclude_groups=exclude_groups)
+
+    def _classify(self, cand, total, overflow, ranked_lineage) -> Dict:
+        return classify_tail(
+            cand, total, overflow, ranked_lineage, hits_min=self.hits_min,
+            hits_diff_fraction=self.classify.hits_diff_fraction,
+            highest_rank=self.highest_rank)
 
     def exclusion_group_of(self, node: int) -> int:
         if node == 0:
@@ -279,49 +339,6 @@ class QueryEngine:
             self.dispatch_packed(p1, a1, lens1, p2, a2, lens2,
                                  exclude_groups=exclude_groups), n)
 
-    def dispatch_packed(self, p1, a1, lens1, p2, a2, lens2,
-                        exclude_groups=None) -> Dict:
-        """Enqueue one packed batch; returns without waiting for the
-        device. The summary's device->host copy is queued behind it.
-        exclude_groups: optional host [B] clade per read (set_exclusion)."""
-        qlen = self.pipeline.max_query_len
-        fused = torch.from_numpy(fuse_host_inputs(p1, a1, lens1,
-                                                  p2, a2, lens2))
-        cuda = self.device.type == "cuda"
-        eg = None
-        if exclude_groups is not None:
-            if "target_groups" not in self.tables:
-                raise ValueError("exclude_groups given but set_exclusion "
-                                 "was not called")
-            eg = torch.from_numpy(np.asarray(exclude_groups, np.int64))
-        if cuda:
-            fused = fused.pin_memory().to(self.device, non_blocking=True)
-            if eg is not None:
-                eg = eg.pin_memory().to(self.device, non_blocking=True)
-        p = self.sketch_params
-        out = query_batch(
-            *unfuse_device_inputs(fused, qlen), self.tables,
-            k=p.kmer_size, sketch_size=p.sketch_size,
-            window_size=p.window_size, window_stride=p.window_stride,
-            starts=self.starts, lmax=self.lmax,
-            max_candidates=self.classify.max_candidates,
-            insert_size_max=self.classify.insert_size_max,
-            hits_min=self.hits_min,
-            hits_diff_fraction=self.classify.hits_diff_fraction,
-            highest_rank=self.highest_rank, exclude_groups=eg,
-            target_window_k=self.target_window_k)
-        summary = torch.stack([out["best"], out["best_rank"],
-                               out["match_total"], out["match_overflow"]])
-        if cuda:
-            host = torch.empty(summary.shape, dtype=summary.dtype,
-                               pin_memory=True)
-            host.copy_(summary, non_blocking=True)
-            out["_event"] = torch.cuda.Event()
-            out["_event"].record()
-            summary = host
-        out["_summary_host"] = summary
-        return out
-
     def materialize(self, out: Dict, n: int) -> BatchResult:
         return BatchResult(n, out)
 
@@ -329,6 +346,47 @@ class QueryEngine:
                          ) -> List[BatchResult]:
         """items: [(out, n), ...] from dispatch_packed, in dispatch order."""
         return [BatchResult(n, out) for out, n in items]
+
+
+class QueryEngine(EngineBase):
+    """Device-resident database tables + the batch pipeline."""
+
+    def __init__(self, db: Database, classify: ClassifyParams,
+                 pipeline: QueryPipelineParams = QueryPipelineParams(),
+                 device: torch.device = torch.device("cpu"),
+                 target_window_k: int = 0,
+                 tables: Dict[str, torch.Tensor] = None):
+        """`tables`: device tables of this database for this lowest rank,
+        already uploaded (tables_from_database), to share them."""
+        super().__init__(db, classify, pipeline, target_window_k)
+        self.device = device
+        self.tables = tables if tables is not None else \
+            tables_from_database(db, device, self.lowest_rank)
+
+    def set_exclusion(self, rank_code: int):
+        """Enable clade exclusion on `rank_code`: per-read exclusion groups
+        (exclusion_group_of each read's ground truth) must then be passed
+        to dispatch_packed / classify_batch."""
+        self.tables = dict(self.tables, target_groups=torch.from_numpy(
+            make_target_groups(self.db, rank_code)).to(self.device))
+        self.exclude_rank = rank_code
+
+    def dispatch_packed(self, p1, a1, lens1, p2, a2, lens2,
+                        exclude_groups=None) -> Dict:
+        """Enqueue one packed batch; returns without waiting for the
+        device. The summary's device->host copy is queued behind it.
+        exclude_groups: optional host [B] clade per read (set_exclusion)."""
+        self._check_exclusion(exclude_groups)
+        fused, eg = upload_batch(p1, a1, lens1, p2, a2, lens2,
+                                 exclude_groups, [self.device])[self.device]
+        features, l1, l2 = self._sketch(fused)
+        loc = self._candidates(features, l1, l2, self.tables, eg)
+        out = self._classify(loc["cand"], loc["total"], loc["overflow"],
+                             self.tables["ranked_lineage"])
+        if self.target_window_k:
+            out["target_window_hits"] = target_window_hits(
+                loc["cand"], loc["tgt"], loc["win"], self.target_window_k)
+        return fetch_summary(out)
 
 
 def _rank_code(rank) -> int:

@@ -1,11 +1,11 @@
 """The port's CLI (python -m metacache_tpu_torch.cli) against the JAX CLI
 (python -m metacache_tpu.cli) on a mock world: `build` (native and
 WindowBatcher paths) and `modify` write shard files equal array by array;
-`query -device cpu` (with -exclude, -hits-per-seq, -align and in
+`query -device cpu` (with -exclude, -hits-per-seq, -align, -mesh and in
 interactive mode), `merge` and `info` write byte-identical output (the
 run-dependent '# time:' / '# speed:' lines aside). Also: the port runs
-with JAX made unimportable, it maps shard tables instead of reading them,
-and -mesh, not yet ported, fails with a clear message."""
+with JAX made unimportable, and it maps shard tables instead of reading
+them."""
 import os
 import shutil
 import subprocess
@@ -19,9 +19,9 @@ from tests import util_mockdata as mock
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run(module, args, tmp, stdin=None):
+def run(module, args, tmp, stdin=None, env=None):
     env = dict(os.environ, METACACHE_PLATFORM="cpu", PYTHONPATH=REPO,
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", **(env or {}))
     return subprocess.run([sys.executable, "-m", module] + args,
                           capture_output=True, text=True, cwd=tmp, env=env,
                           timeout=600, input=stdin)
@@ -167,6 +167,13 @@ assert rc == 0, rc
 rc = main(["query", "nojaxdb", "reads_1.fa", "reads_2.fq", "-pairfiles",
            "-lowest", "species", "-device", "cpu", "-out", "nojax.txt"])
 assert rc == 0, rc
+rc = main(["build", "nojaxdb2", "genomes.fa", "-taxonomy", "tax", "-silent",
+           "-num-shards", "2"])
+assert rc == 0, rc
+rc = main(["query", "nojaxdb2", "reads_1.fa", "reads_2.fq", "-pairfiles",
+           "-lowest", "species", "-device", "cpu", "-mesh", "-out",
+           "nojax_mesh.txt"])
+assert rc == 0, rc
 for f, r in (("nojax_1.txt", "reads_1.fa"), ("nojax_2.txt", "reads_2.fq")):
     rc = main(["query", "nojaxdb", r, "-tophits", "-queryids", "-lowest",
                "species", "-device", "cpu", "-out", f])
@@ -197,16 +204,76 @@ def test_port_runs_without_jax(world):
     assert rt.returncode == 0, rt.stderr
     assert _result_lines(os.path.join(world, "nojax.txt")) == \
         _result_lines(os.path.join(world, "withjax.txt"))
+    assert _result_lines(os.path.join(world, "nojax_mesh.txt")) == \
+        _result_lines(os.path.join(world, "nojax.txt"))
+    assert "shard 1 on cpu" in r.stderr
     assert "Added 1 reference sequences." in r.stdout
 
 
-@pytest.mark.parametrize("args", [
-    pytest.param(["query", "tdb", "reads_1.fa", "-mesh"], id="mesh"),
-])
-def test_unported_options_fail_clearly(world, args):
-    r = port_cli(args + ["-device", "cpu"], world)
-    assert r.returncode == 1
-    assert "not yet ported" in r.stderr
+@pytest.fixture(scope="module")
+def db8(world):
+    """The world's genomes in 8 shards, built by the port."""
+    r = port_cli(["build", "tdb8", "genomes.fa", "-taxonomy", "tax",
+                  "-num-shards", "8"], world)
+    assert r.returncode == 0, r.stderr
+    return "tdb8"
+
+
+#: the flag sets of tests/test_cli_mesh.py; the port's -mesh is held to
+#: the JAX CLI's -mesh (8 virtual devices) on two, to its own fused query
+#: on the others
+MESH_FLAGS = [
+    pytest.param([], "jax", id="default"),
+    pytest.param(["-tophits", "-queryids"], "fused", id="tophits"),
+    pytest.param(["-allhits", "-locations"], "fused",
+                 id="allhits-locations"),
+    pytest.param(["-hits-per-seq"], "fused", id="hits-per-seq"),
+    pytest.param(["-abundances", "-abundance-per", "species"], "fused",
+                 id="abundances"),
+    pytest.param(["-maxcand", "4", "-hitmin", "4", "-hitdiff", "80"],
+                 "fused", id="canonical"),
+    pytest.param(["-ground-truth", "-precision", "-exclude", "species"],
+                 "jax", id="exclude-species"),
+    # query-time tuning applies per shard, so it differs from fused
+    pytest.param(["-remove-overpopulated-features",
+                  "-max-locations-per-feature", "3"], "jax",
+                 id="overpopulated-per-shard"),
+]
+
+
+@pytest.mark.parametrize("flags,oracle", MESH_FLAGS)
+def test_mesh_query_equals(world, db8, flags, oracle):
+    tag = "mesh" + str(abs(hash(tuple(flags))))
+    base = ["query", db8, "reads_1.fa", "reads_2.fq", "-pairfiles",
+            "-lowest", "species"] + flags
+    rt = port_cli(base + ["-mesh", "-device", "cpu", "-out", f"t{tag}.txt"],
+                  world)
+    assert rt.returncode == 0, rt.stderr
+    assert "falling back" not in rt.stderr
+    assert "shard 7 on cpu" in rt.stderr
+    if oracle == "jax":
+        env = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+        ro = run("metacache_tpu.cli", base + ["-mesh", "-out", f"o{tag}.txt"],
+                 world, env=env)
+        assert "falling back" not in ro.stderr
+    else:
+        ro = port_cli(base + ["-device", "cpu", "-out", f"o{tag}.txt"], world)
+    assert ro.returncode == 0, ro.stderr
+    want = _result_lines(os.path.join(world, f"o{tag}.txt"))
+    assert sum(not ln.startswith("#") for ln in want) >= 240
+    assert _result_lines(os.path.join(world, f"t{tag}.txt")) == want
+
+
+def test_mesh_on_one_shard_runs_fused(world):
+    rt = port_cli(["query", "tdb", "reads_1.fa", "-mesh", "-device", "cpu",
+                   "-out", "mesh1.txt"], world)
+    assert rt.returncode == 0, rt.stderr
+    assert "falling back to fused single-device query" in rt.stderr
+    rf = port_cli(["query", "tdb", "reads_1.fa", "-device", "cpu", "-out",
+                   "fused1.txt"], world)
+    assert rf.returncode == 0, rf.stderr
+    assert _result_lines(os.path.join(world, "mesh1.txt")) == \
+        _result_lines(os.path.join(world, "fused1.txt"))
 
 
 def test_cuda_without_a_card_raises(world):
@@ -232,6 +299,21 @@ def test_interactive_query_equals_jax(world):
     assert len(want) > 400 and want[-1] == "$> Terminate."
     assert _timeless(rt.stdout.splitlines()) == want
     assert rt.stderr.count("(reusing loaded engine)") == 1
+
+
+def test_interactive_mesh_line_runs_fused(world, db8):
+    """A stdin line with -mesh runs on the fused database, as in the JAX
+    interactive mode."""
+    lines = ("reads_1.fa reads_2.fq -pairfiles -lowest species -mesh\n"
+             "reads_1.fa -tophits -lowest species\n")
+    rj = jax_cli(["query", db8], world, stdin=lines)
+    rt = port_cli(["query", db8, "-device", "cpu"], world, stdin=lines)
+    assert rj.returncode == 0, rj.stderr
+    assert rt.returncode == 0, rt.stderr
+    want = _timeless(rj.stdout.splitlines())
+    assert len(want) > 480 and want[-1] == "$> Terminate."
+    assert _timeless(rt.stdout.splitlines()) == want
+    assert "not yet ported" not in rt.stderr
 
 
 def test_merge_equals_jax(world):

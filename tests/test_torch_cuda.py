@@ -145,14 +145,11 @@ def test_kernel_rejects_bad_inputs(dev):
                                   window_size=128, starts=(0,))
 
 
-@pytest.mark.parametrize("options", [False, True],
-                         ids=["plain", "exclusion-window-hits"])
-def test_engine_cuda_matches_cpu(dev, tmp_path, options):
-    from metacache_tpu.config import ClassifyParams, QueryPipelineParams
-    from metacache_tpu.db.taxonomy import Rank
+def engine_world(tmp_path, num_shards):
+    """Six genomes (0 and 3 are strains: shared features) built into
+    num_shards shards, and 200 read pairs in [256, 128] host buffers."""
     from metacache_tpu_torch.db.build import (BuildOptions,
                                               build_database_shards)
-    from metacache_tpu_torch.query.engine import QueryEngine
 
     def encode_read_into(codes, lens, row, seq, max_len):
         c = encode.np_encode_bytes(np.frombuffer(seq.encode(), np.uint8))
@@ -170,9 +167,8 @@ def test_engine_cuda_matches_cpu(dev, tmp_path, options):
     fasta = tmp_path / "genomes.fa"
     fasta.write_text("".join(f">NC_{i:06d}.1 g\n{g}\n"
                              for i, g in enumerate(genomes)))
-    db = build_database_shards([str(fasta)], BuildOptions())[0]
-    pipeline = QueryPipelineParams(batch_size=256, max_query_len=128,
-                                   max_locations_per_query=64)
+    dbs = build_database_shards([str(fasta)], BuildOptions(),
+                                num_shards=num_shards)
     c1, l1, c2, l2 = (np.zeros((256, 128), np.uint8), np.zeros(256, np.int32),
                       np.full((256, 128), 255, np.uint8),
                       np.zeros(256, np.int32))
@@ -181,6 +177,23 @@ def test_engine_cuda_matches_cpu(dev, tmp_path, options):
         p = int(rng.integers(0, len(g) - 300))
         encode_read_into(c1, l1, i, g[p:p + 100], 128)
         encode_read_into(c2, l2, i, g[p + 180:p + 280], 128)
+    return dbs, (c1, l1, c2, l2), rng
+
+
+FIELDS = ["best", "best_rank", "match_total", "match_overflow", "cand_tax",
+          "cand_hits", "cand_beg", "cand_end", "cand_tgt"]
+
+
+@pytest.mark.parametrize("options", [False, True],
+                         ids=["plain", "exclusion-window-hits"])
+def test_engine_cuda_matches_cpu(dev, tmp_path, options):
+    from metacache_tpu.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu.db.taxonomy import Rank
+    from metacache_tpu_torch.query.engine import QueryEngine
+
+    (db,), (c1, l1, c2, l2), rng = engine_world(tmp_path, 1)
+    pipeline = QueryPipelineParams(batch_size=256, max_query_len=128,
+                                   max_locations_per_query=64)
     classify = ClassifyParams(max_candidates=3)
     groups = None
     if options:
@@ -194,10 +207,116 @@ def test_engine_cuda_matches_cpu(dev, tmp_path, options):
             eng.set_exclusion(Rank.SEQUENCE)
         res.append(eng.classify_batch(c1, l1, c2, l2, 200,
                                       exclude_groups=groups))
-    fields = ["best", "best_rank", "match_total", "match_overflow",
-              "cand_tax", "cand_hits", "cand_beg", "cand_end", "cand_tgt"]
-    for f in fields + (["target_window_hits"] if options else []):
+    for f in FIELDS + (["target_window_hits"] if options else []):
         np.testing.assert_array_equal(getattr(res[0], f), getattr(res[1], f),
                                       err_msg=f)
     assert os.path.exists(sketch_cuda.LIBRARY.path())
     assert os.path.exists(gather_cuda.LIBRARY.path())
+
+
+def test_sharded_engine_cuda_matches_cpu(dev, tmp_path):
+    """Two shards on one card (the one-card -mesh placement), with window
+    hit counts, against the same two shards on the CPU; both kernels
+    launch once per batch on the card (one sketch per device)."""
+    from metacache_tpu.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu_torch.parallel import ShardedQueryEngine
+
+    dbs, inputs, _ = engine_world(tmp_path, 2)
+    pipeline = QueryPipelineParams(batch_size=256, max_query_len=128,
+                                   max_locations_per_query=64)
+    classify = ClassifyParams(max_candidates=3)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        eng = ShardedQueryEngine(dbs, classify, pipeline, [d, d],
+                                 target_window_k=16)
+        sk, ga = sketch_cuda.launches, gather_cuda.launches
+        res.append(eng.classify_batch(*inputs, 200))
+        if d.type == "cuda":
+            assert sketch_cuda.launches - sk == 2     # both mates, once
+            assert gather_cuda.launches - ga == 2     # once per shard
+    for f in FIELDS + ["target_window_hits"]:
+        np.testing.assert_array_equal(getattr(res[0], f), getattr(res[1], f),
+                                      err_msg=f)
+    assert (res[0].match_total[:200] > 0).sum() > 150
+
+
+def _launch(args, cwd, ranks, timeout=300):
+    """The port's CLI as `ranks` processes of one group (ranks 0 = a
+    single process without MC_*); all are killed and the test fails past
+    the time limit. -> [(stdout, stderr)] per process."""
+    import socket
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(max(1, ranks)):
+        env = dict(os.environ, PYTHONPATH=repo)
+        if ranks:
+            env.update(MC_COORDINATOR=f"127.0.0.1:{port}",
+                       MC_NUM_PROCS=str(ranks), MC_PROC_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "metacache_tpu_torch.cli"] + args,
+            cwd=cwd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail(f"{args[0]} on {ranks} rank(s) exceeded {timeout} s")
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return outs
+
+
+def test_one_rank_per_card_over_nccl(dev, tmp_path):
+    """With two or more cards: one rank per card (nccl) builds and
+    serves the shards s % P == r, and one process spreads the shards over
+    the cards (shard s on card s); both give the single-card fused
+    query's lines, and the build gives the single-process shards."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two or more cards (one rank per card)")
+    rng = np.random.default_rng(7)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genomes = [acgt[rng.integers(0, 4, 4000)].tobytes().decode()
+               for _ in range(4 * n)]
+    (tmp_path / "g.fa").write_text("".join(
+        f">NC_{i:06d}.1 g\n{g}\n" for i, g in enumerate(genomes)))
+    reads = []
+    for q in range(3000):
+        g = genomes[int(rng.integers(0, len(genomes)))]
+        p = int(rng.integers(0, len(g) - 100))
+        reads.append(f">r{q}\n{g[p:p + 100]}\n")
+    (tmp_path / "r.fa").write_text("".join(reads))
+    shards = str(2 * n)
+    _launch(["build", "one", "g.fa", "-num-shards", shards], tmp_path, 0)
+    _launch(["build", "dist", "g.fa", "-num-shards", shards], tmp_path, n)
+    for s in range(2 * n):
+        with np.load(tmp_path / f"one_{s}.npz", allow_pickle=True) as a, \
+                np.load(tmp_path / f"dist_{s}.npz", allow_pickle=True) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    query = ["r.fa", "-tophits", "-device", "cuda"]
+    _launch(["query", "one"] + query + ["-out", "fused.txt"], tmp_path, 0)
+    outs = _launch(["query", "dist"] + query + ["-mesh", "-out", "dist.txt"],
+                   tmp_path, n)
+    for r, (_, err) in enumerate(outs):
+        assert "backend nccl" in err
+        assert f"shard {r} on cuda:{r}" in err
+    (_, err), = _launch(["query", "one"] + query
+                        + ["-mesh", "-out", "cards.txt"], tmp_path, 0)
+    assert f"shard {n} on cuda:0" in err and "shard 1 on cuda:1" in err
+
+    def lines(name):
+        return [ln for ln in (tmp_path / name).read_text().splitlines()
+                if not ln.startswith(("# time:", "# speed:"))]
+    want = lines("fused.txt")
+    assert sum(not ln.startswith("#") for ln in want) == 3000
+    assert lines("dist.txt") == want
+    assert lines("cards.txt") == want
