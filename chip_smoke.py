@@ -10,7 +10,13 @@ Phases, each printed on its own line; any failure exits non-zero:
   2. kernels vs plain: the CUDA sketch kernel (csrc/sketch.cu) and the
      CUDA gather kernel (csrc/gather.cu) held bit for bit against their
      plain PyTorch versions on the card, at the main paths' shapes and on
-     edge cases; both versions timed with CUDA events.
+     edge cases. Per kernel and shape: its device time (a CUDA graph of
+     20 calls, replayed: no host launch cost), its call time (CUDA events
+     over back-to-back calls from Python, host launch cost included), the
+     plain version's call time, the one library call that computes the
+     same function where there is one (table[idx] for the gather), the
+     bound (bytes over the HBM rate or operations over the issue rate,
+     counted from the inputs) and the share of it.
   3. config-2 (BASELINE config-2, the RefSeq-viral analogue of bench.py:
      15,000 genomes, 1,048,576 single-end 100 bp reads): the port's CLI
      builds the database, then queries every read on -device cuda. Checks
@@ -47,13 +53,25 @@ Phases, each printed on its own line; any failure exits non-zero:
  13. realistic_mesh: the realistic world in 2 shards with -mesh; the
      first 8,192 pairs on the CPU give the same lines; how many lines
      differ from the fused query's (per-shard truncation) is printed.
+ 14. self_contained: no module of the JAX package (metacache_tpu) was
+     imported by this run, and the native library it loaded is the
+     port's own, built from metacache_tpu_torch/native/mcio.cpp into
+     build/metacache_tpu_torch/.
 Each path is driven with every kernel's launch count set to 0 just
 before it and read just after. Then the kernels' JSON line and, last,
 the device JSON line.
 
 Worlds, databases and outputs go to build/smoke/ (and the kernel
-libraries to build/metacache_tpu_torch/) inside the checkout. Imports no
-JAX.
+libraries and libmcio to build/metacache_tpu_torch/) inside the checkout.
+Imports neither JAX nor the JAX package.
+
+    python3 chip_smoke.py --kernel-times [ROOT]
+
+runs phase 2 alone on the port found under ROOT (default: this
+checkout), to time another tree's kernels beside this one's in one call.
+It also times three yardsticks of the gather at each shape: the same
+output written by one fill kernel, by the kernel with no slot valid, and
+the valid slots' table reads alone as one library gather.
 """
 from __future__ import annotations
 
@@ -80,6 +98,28 @@ PALLAS_GATHERS = {"k1": "tools/exp_pallas_gather.py:50",
 #: config-2's lookup: its location table and the query's [B, lmax] slots
 C2_LOCATIONS = 86_957_916
 C2_SLOTS = (16384, 256)
+C2_MAX_VALID = 26           # rows hold 0..26 matches: 5.1% of the slots
+#: the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM
+#: bytes/s, and lane operations/s: an SM issues at most 4 warp
+#: instructions (128 lane operations) per clock, 132 SMs at the 1.98 GHz
+#: boost clock, which is the data sheet's 67 TFLOP/s of float32 with an
+#: FMA counted as two. An integer mix meets the same ceiling: the
+#: compiler spreads it over the INT32 pipe (64 lanes per SM) and the FMA
+#: pipe (IMAD, and the IMAD forms of shifts, adds and moves)
+HBM_BYTES_PER_S = 3.35e12
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+#: integer operations the sketch needs at least, in the cheapest scheme
+#: known, each k-mer assembled from the packed row as the kernel does (a
+#: rolling pair of strands costs ~7 per character instead): per k-mer
+#: start in a window, its ambiguity test (a funnel shift of the
+#: ambiguity bits and a test); per valid k-mer, both strands (a funnel
+#: shift, a bit reverse, a 3-operation swap of the bit pairs, the
+#: complement; k < 16 adds a mask and a shift), the canonical min, the
+#: Thomas-Mueller hash (3 shifts, 3 xors, 2 multiplies) and one compare
+#: against the sketch's largest value
+SKETCH_OPS_PER_START = 2
+SKETCH_OPS_PER_KMER = 6 + 1 + 8 + 1
+SKETCH_OPS_SHORT_K = 2
 
 CPU_LINES = 16384          # reads compared with -device cpu
 ALIGN_READS = 4096
@@ -89,6 +129,10 @@ INTERACTIVE_READS = 65536
 MESH_SHARDS = 4            # config-2's -mesh and 2-rank shard count
 DIST_READS = 262144        # reads of the 2-rank -mesh query
 RANK_TIMEOUT = 600         # seconds for each 2-rank launch
+
+#: the timed numbers of a kernel at one shape that its JSON row carries
+TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+         "bound_ms", "bound_by", "share_of_bound")
 
 #: launches of each kernel, summed over the paths this run drove
 LAUNCHES = {"sketch_packed": 0, "gather_rows": 0}
@@ -174,7 +218,9 @@ def result_lines(path):
                 if not ln.startswith(("# time:", "# speed:"))]
 
 
-def cuda_ms(fn, reps=10):
+def call_ms(fn, reps=20):
+    """Time per call of back-to-back calls from Python, by CUDA events: the
+    device time plus any host launch cost the device waits on."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -186,6 +232,45 @@ def cuda_ms(fn, reps=10):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device time per call: a CUDA graph of `reps` calls, replayed, so no
+    host launch cost is in it (the graph's gaps between kernels are)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return call_ms(graph.replay, 5) / reps
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's HBM
+    rate and the operations over its issue rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ISSUE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(name, fn, plain, library, bound_ms, bound_by):
+    """Times of one kernel at one shape, printed with its bound."""
+    res = dict(ms=call_ms(fn), device_ms=device_ms(fn),
+               plain_ms=call_ms(plain, 3),
+               library_ms=None if library is None else call_ms(library),
+               library_device_ms=None if library is None
+               else device_ms(library),
+               bound_ms=bound_ms, bound_by=bound_by)
+    res["share_of_bound"] = bound_ms / res["device_ms"]
+    say(name, **{k: ("none" if v is None else
+                     f"{v:.6f}" if isinstance(v, float) else v)
+                 for k, v in res.items()})
+    return res
 
 
 def build_kernels():
@@ -204,21 +289,46 @@ def build_kernels():
                     ptxas=line.strip().replace(" ", "_"))
 
 
-def random_reads(rng, B, L, max_len, ambig_rate=0.01):
-    """[B, L] 2-bit packed reads of random length <= max_len, some bases
-    ambiguous, as the native reader packs them."""
+def random_reads(rng, B, L, max_len, ambig_rate=0.01, full=False):
+    """[B, L] 2-bit packed reads of random length <= max_len (all of
+    length max_len if `full`), some bases ambiguous, as the native reader
+    packs them."""
     import numpy as np
     from metacache_tpu_torch.ops.encode import np_pack_codes
     codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
     codes[rng.random((B, L)) < ambig_rate] = 255
-    lens = rng.integers(0, max_len + 1, B).astype(np.int32)
+    lens = np.full(B, max_len, np.int32) if full else \
+        rng.integers(0, max_len + 1, B).astype(np.int32)
     codes[np.arange(L)[None, :] >= lens[:, None]] = 255
     p, a = np_pack_codes(codes)
     return p, a, lens
 
 
+def sketch_bound(packed, ambig, lens, out, k, window_size, starts):
+    """The sketch's bound on these inputs: each input and the output moved
+    once; SKETCH_OPS_PER_START operations for every k-mer start in a
+    window and SKETCH_OPS_PER_KMER (+ SKETCH_OPS_SHORT_K for k < 16) for
+    every valid k-mer, counted from the data (the k-mer validity rule of
+    the plain version)."""
+    from metacache_tpu_torch.ops.encode import unpack_codes, window_kmers
+    codes = unpack_codes(packed, ambig)
+    kmer_starts = kmers = 0
+    for s in starts:
+        wlen = (lens.long() - s).clamp(0, window_size)
+        kmer_starts += int((wlen - k + 1).clamp(min=0).sum())
+        w = codes[:, s:s + window_size]
+        if w.shape[1] >= k:
+            kmers += int(window_kmers(w, wlen, k)[1].sum())
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (packed, ambig, lens, out)) + 4 * len(starts)
+    per_kmer = SKETCH_OPS_PER_KMER + (SKETCH_OPS_SHORT_K if k < 16 else 0)
+    return bound(nbytes, SKETCH_OPS_PER_START * kmer_starts
+                 + per_kmer * kmers)
+
+
 def phase_kernel(dev):
-    """Sketch kernel vs its plain version on the card: bit-equal, timed."""
+    """Sketch kernel vs its plain version on the card: bit-equal at the
+    main paths' shapes and on edge cases; timed."""
     import numpy as np
     import torch
     from metacache_tpu_torch.ops import encode, sketch_cuda
@@ -235,43 +345,70 @@ def phase_kernel(dev):
         torch.cuda.synchronize()
         check(got.shape == want.shape, "kernel output shape")
         err = int((got - want).abs().max()) if got.numel() else 0
-        return err, args, kw
+        return err, args, kw, got
 
     results = {}
     # the main path's shapes: the QueryPipelineParams default (B 4096,
-    # reads up to 320) and the config-2 / realistic cells (B 16384, 104)
-    for name, B, L, max_len in (("default", 4096, 320, 320),
-                                ("cells", 16384, 104, 100)):
-        p, a, lens = random_reads(rng, B, L, max_len)
-        err, args, kw = run(p, a, lens, L)
+    # reads up to 320) and the config-2 / realistic cells (B 16384, 104,
+    # every read 100 bp as in config-2)
+    for name, B, L, max_len, full in (("default", 4096, 320, 320, False),
+                                      ("cells", 16384, 104, 100, True)):
+        p, a, lens = random_reads(rng, B, L, max_len, full=full)
+        err, args, kw, got = run(p, a, lens, L)
         check(err == 0, f"kernel differs from plain at {name} shapes")
-        ms = cuda_ms(lambda: sketch_cuda.sketch_packed(*args, **kw))
-        plain_ms = cuda_ms(lambda: sketch_packed_reference(*args, **kw), 3)
-        results[name] = dict(shape=f"B{B}xL{L}", err=err, ms=ms,
-                             plain_ms=plain_ms)
-        say("kernel", shape=f"B{B}xL{L}", max_abs_err=err,
-            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+        res = timed(f"kernel_B{B}xL{L}",
+                    lambda: sketch_cuda.sketch_packed(*args, **kw),
+                    lambda: sketch_packed_reference(*args, **kw), None,
+                    *sketch_bound(*args, got, kw["k"], kw["window_size"],
+                                  kw["starts"]))
+        results[name] = dict(res, shape=f"B{B}xL{L}", err=err)
 
     # edge cases: empty, shorter than k, all ambiguous, reads with N,
-    # k 12 and 16, B not a multiple of any tile, and the build's sketch
-    # sizes over 64 (the kernel's larger instantiation)
+    # k 1 to 16, B not a multiple of any tile, the build's sketch sizes
+    # over 64 (sizes above the k-mer count too), ambiguous bases at the
+    # 32-character boundaries, windows longer than 32 characters with
+    # several windows per read, and a single read
     B, L = 1000 + 7, 256
     p, a, lens = random_reads(rng, B, L, L, ambig_rate=0.03)
     lens[:4] = [0, 5, 15, 16]
     a[4:8] = 255          # all ambiguous
-    for k in (12, 16):
+    for r, pos in enumerate((31, 32, 63, 64, 95, 96, 127, 128)):
+        a[8 + r, pos >> 3] |= np.uint8(1 << (pos & 7))
+    for k in (1, 5, 12, 16):
         for s in (1, 16, 64, 80, 256):
-            err, _, _ = run(p, a, lens, L, k=k, s=s)
+            err, _, _, _ = run(p, a, lens, L, k=k, s=s)
             check(err == 0, f"kernel differs from plain on edge cases "
                             f"(k={k}, s={s})")
-    say("kernel", edge_cases="ok", B=B, k="12,16", s="1,16,64,80,256")
+    for W, stride in ((300, 200), (1024, 1000), (40, 7)):
+        for k, s in ((16, 16), (7, 100)):
+            err, _, _, _ = run(p, a, lens, L, k=k, s=s, W=W, stride=stride)
+            check(err == 0, f"kernel differs from plain with window {W} / "
+                            f"stride {stride} (k={k}, s={s})")
+    for k, s in ((16, 16), (1, 4), (16, 256)):
+        err, _, _, _ = run(p[:1], a[:1], lens[:1] + 200, L, k=k, s=s)
+        check(err == 0, f"kernel differs from plain on one read (k={k})")
+    say("kernel", edge_cases="ok", B=B, k="1,5,7,12,16",
+        s="1,4,16,64,80,100,256", windows="128/113,300/200,1024/1000,40/7")
     return results
 
 
-def phase_gather(dev):
+def gather_bound(table, used, n_valid, out):
+    """The gather's bound on these inputs (`used`: the indices of the
+    valid slots): out written once, n_valid read once, the idx of every
+    valid slot read once, and one 32-byte sector of the table for each
+    distinct sector a valid slot reads."""
+    import torch
+    sectors = int(torch.unique(used // (32 // table.element_size())).numel())
+    nbytes = out.numel() * out.element_size() + n_valid.numel() * 8 \
+        + used.numel() * 8 + sectors * 32
+    return bound(nbytes, 0)
+
+
+def phase_gather(dev, yardsticks=False):
     """Gather kernel vs its plain version on the card: bit-equal at the
     probe k1's shapes, at config-2's lookup shape and on edge cases;
-    timed."""
+    timed beside the one library call table[idx] (and, with
+    `yardsticks`, beside each half of its work alone)."""
     import torch
     from metacache_tpu_torch.ops import gather_cuda
     from metacache_tpu_torch.ops.gather import gather_rows_reference
@@ -279,7 +416,7 @@ def phase_gather(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(2025)
 
-    def case(N, B, L, dtype, full):
+    def case(N, B, L, dtype, full, max_valid=None):
         hi = torch.iinfo(dtype).max
         table = torch.randint(0, hi, (N,), dtype=dtype, device=dev,
                               generator=gen)
@@ -288,12 +425,13 @@ def phase_gather(dev):
         if full:
             n_valid = torch.full((B,), L, dtype=torch.int64, device=dev)
         else:
-            n_valid = torch.randint(0, L + 1, (B,), dtype=torch.int64,
-                                    device=dev, generator=gen)
+            n_valid = torch.randint(0, (max_valid or L) + 1, (B,),
+                                    dtype=torch.int64, device=dev,
+                                    generator=gen)
             n_valid[:2] = torch.tensor([0, L], device=dev)
         return table, idx, n_valid, hi
 
-    def compare(name, table, idx, n_valid, pad, timed=False):
+    def compare(name, table, idx, n_valid, pad, timed_=False):
         got = gather_cuda.gather_rows(table, idx, n_valid, pad)
         want = gather_rows_reference(table, idx, n_valid, pad)
         torch.cuda.synchronize()
@@ -302,15 +440,29 @@ def phase_gather(dev):
         err = int((got != want).sum())
         check(err == 0, f"gather kernel differs from plain in {err} "
                         f"elements ({name})")
-        res = dict(err=err)
-        if timed:
-            res["ms"] = cuda_ms(
-                lambda: gather_cuda.gather_rows(table, idx, n_valid, pad))
-            res["plain_ms"] = cuda_ms(
-                lambda: gather_rows_reference(table, idx, n_valid, pad))
-            say("gather", shape=name, max_abs_err=err,
-                kernel_ms=f"{res['ms']:.4f}",
-                plain_ms=f"{res['plain_ms']:.4f}")
+        res = dict(err=err, shape=name)
+        if timed_:
+            used = idx[torch.arange(idx.shape[1], device=dev)[None, :]
+                       < n_valid[:, None]]
+            res.update(timed(
+                f"gather_{name}",
+                lambda: gather_cuda.gather_rows(table, idx, n_valid, pad),
+                lambda: gather_rows_reference(table, idx, n_valid, pad),
+                lambda: table[idx], *gather_bound(table, used, n_valid, got)))
+        if timed_ and yardsticks:
+            # device times of each half of the work alone: the same output
+            # written by one fill kernel, and by this kernel with no slot
+            # valid; the valid slots' random table reads alone, as one
+            # library gather
+            none = torch.zeros_like(n_valid)
+            halves = dict(
+                write_only_device_ms=lambda: torch.full(
+                    got.shape, pad, dtype=got.dtype, device=dev),
+                pad_only_device_ms=lambda: gather_cuda.gather_rows(
+                    table, idx, none, pad),
+                reads_only_device_ms=lambda: table[used])
+            say(f"gather_{name}", **{k: f"{device_ms(f):.6f}"
+                                     for k, f in halves.items()})
         return res
 
     results = {}
@@ -319,16 +471,24 @@ def phase_gather(dev):
     results["k1"] = compare("k1_N1048576_B2048xL128", t, i, n, pad, True)
     del t, i, n
     # config-2's lookup: its 86,957,916 packed locations (int64, 696 MB,
-    # far past the 50 MB L2) and [16384, 256] slots, rows 0..256 valid
-    t, i, n, pad = case(C2_LOCATIONS, *C2_SLOTS, torch.int64, False)
+    # far past the 50 MB L2) and [16384, 256] slots; rows hold 0..26
+    # valid slots, 5.1% of them, as config-2's lookup fills 5.2% (PERF.md)
+    t, i, n, pad = case(C2_LOCATIONS, *C2_SLOTS, torch.int64, False,
+                        max_valid=C2_MAX_VALID)
     results["config2"] = compare(
         f"config2_N{C2_LOCATIONS}_B{C2_SLOTS[0]}xL{C2_SLOTS[1]}", t, i, n,
         pad, True)
     del t, i, n
     torch.cuda.empty_cache()
-    # edge cases: B 1007, a one-word table, rows with nothing valid
+    # edge cases: B 1007, rows 0..L valid, a one-word table, rows with
+    # nothing valid, lengths that are no multiple of a 16-byte vector,
+    # one row
     for name, N, B, L, dtype, full in (
             ("B1007", 1 << 16, 1007, 256, torch.int64, False),
+            ("L257_i32", 1 << 16, 300, 257, torch.int32, False),
+            ("L257_i64", 1 << 16, 300, 257, torch.int64, False),
+            ("L3_i32_full", 1 << 10, 77, 3, torch.int32, True),
+            ("one_row", 1 << 10, 1, 1000, torch.int64, True),
             ("one_word_table", 1, 64, 7, torch.int32, True),
             ("one_word_table_partial", 1, 33, 5, torch.int64, False)):
         compare(name, *case(N, B, L, dtype, full))
@@ -529,7 +689,7 @@ def phase_modify(c2):
     databases are equal array for array; the feature table equals the
     one-shot build's; every read is queried against the result."""
     import numpy as np
-    from metacache_tpu.db.database import shard_path
+    from metacache_tpu_torch.db.database import shard_path
     tax = os.path.join(c2["dir"], "tax")
     fa, fb = split_genomes(c2)
     db_a = os.path.join(WORK, "db_a")
@@ -768,7 +928,7 @@ def phase_distributed(c2, mesh_db):
     shards, rank r writing s % 2 == r, equal to the single-process
     build's; (b) query -mesh, rank 0's lines equal the fused query's."""
     import numpy as np
-    from metacache_tpu.db.database import shard_path
+    from metacache_tpu_torch.db.database import shard_path
     db = os.path.join(c2["dir"], "dist_db")
     _, build_s, backend = launch_ranks("dist_build", [
         "build", db, os.path.join(c2["dir"], "genomes.fa"), "-taxonomy",
@@ -832,6 +992,25 @@ def phase_realistic_mesh(big):
                 "realistic_mesh")
 
 
+def phase_self_contained():
+    """No module of the JAX package in this process, and the native
+    library it loaded is the port's own build."""
+    from metacache_tpu_torch import native
+    from metacache_tpu_torch.ops.cuda_build import BUILD_DIR
+    loaded = [m for m, mod in sys.modules.items() if mod is not None]
+    jax_pkg = sorted(m for m in loaded if m == "metacache_tpu"
+                     or m.startswith("metacache_tpu."))
+    check(not jax_pkg, f"self_contained: modules of the JAX package were "
+                       f"imported: {jax_pkg[:5]}")
+    check("jax" not in loaded, "self_contained: jax was imported")
+    path = native.load_mcio()._name
+    check(os.path.dirname(path) == BUILD_DIR
+          and path == native.library_path(),
+          f"self_contained: libmcio was loaded from {path}")
+    say("self_contained", jax_package_modules=0,
+        libmcio=os.path.relpath(path, REPO))
+
+
 def use_repo_tests_package():
     """bench.py's world generators import `tests.util_mockdata`. Bind the
     name `tests` to this checkout's test directory, even where an
@@ -845,35 +1024,46 @@ def use_repo_tests_package():
 def kernels_json(sketch, gather):
     cell = sketch["cells"]
     c2 = gather["config2"]
-    rows = [{
-        "name": "sketch_packed",
-        "route": "cuda",
-        "source": "metacache_tpu_torch/csrc/sketch.cu",
-        "replaces": PALLAS_SKETCH,
-        "launches": LAUNCHES["sketch_packed"],
-        "max_abs_err": max(r["err"] for r in sketch.values()),
-        "ms": cell["ms"],
-        "plain_ms": cell["plain_ms"],
-        "shape": cell["shape"],
-    }]
+    rows = [dict(
+        name="sketch_packed", route="cuda",
+        source="metacache_tpu_torch/csrc/sketch.cu", replaces=PALLAS_SKETCH,
+        launches=LAUNCHES["sketch_packed"],
+        max_abs_err=max(r["err"] for r in sketch.values()),
+        shape=cell["shape"], **{k: cell[k] for k in TIMES})]
     # one kernel replaces both probes (k2's row-and-lane layout has no
-    # counterpart on Hopper); its time at config-2's lookup shape
+    # counterpart on Hopper); its times at config-2's lookup shape, and at
+    # k1's own shape under k1_*
     for probe, where in PALLAS_GATHERS.items():
-        rows.append({
-            "name": "gather_rows",
-            "route": "cuda",
-            "source": "metacache_tpu_torch/csrc/gather.cu",
-            "replaces": where,
-            "launches": LAUNCHES["gather_rows"],
-            "max_abs_err": max(r["err"] for r in gather.values()),
-            "ms": c2["ms"],
-            "plain_ms": c2["plain_ms"],
-            "shape": f"N{C2_LOCATIONS}_B{C2_SLOTS[0]}xL{C2_SLOTS[1]}",
-            "probe": probe,
-            "k1_ms": gather["k1"]["ms"],
-            "k1_plain_ms": gather["k1"]["plain_ms"],
-        })
+        rows.append(dict(
+            name="gather_rows", route="cuda",
+            source="metacache_tpu_torch/csrc/gather.cu", replaces=where,
+            launches=LAUNCHES["gather_rows"],
+            max_abs_err=max(r["err"] for r in gather.values()),
+            shape=c2["shape"], probe=probe, **{k: c2[k] for k in TIMES},
+            **{f"k1_{k}": gather["k1"][k] for k in TIMES}))
     return {"kernels": rows}
+
+
+def kernel_times(root) -> int:
+    """Only the kernel phases (build, bit-equality, times), on the port
+    found under `root`: the way to time another tree's kernels beside this
+    one's in the same call."""
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    import metacache_tpu_torch
+    say("kernel_times", root=os.path.dirname(metacache_tpu_torch.__file__))
+    try:
+        build_kernels()
+        dev = torch.device("cuda")
+        phase_kernel(dev)
+        phase_gather(dev, yardsticks=True)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def main() -> int:
@@ -922,6 +1112,7 @@ def main() -> int:
         mesh_db = phase_mesh(c2)
         phase_distributed(c2, mesh_db)
         phase_realistic_mesh(big)
+        phase_self_contained()
         say("done", seconds=f"{time.time() - t0:.1f}")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -936,4 +1127,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--kernel-times"]:
+        sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

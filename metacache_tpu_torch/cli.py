@@ -2,9 +2,8 @@
 
 Usage: python -m metacache_tpu_torch.cli <mode> ... [-device cuda|cpu]
 
-`build`, `modify`, `query`, `info` and `merge` run on the port (their
-device work on -device, default cuda); `help` and `annotate` are
-host-only and dispatch to the JAX package's JAX-free modules.
+`build`, `modify`, `query`, `info` and `merge` run their device work on
+-device (default cuda); `help` and `annotate` are host-only.
 
 Multi-process launch (the reference's mpirun): start P processes with
 MC_COORDINATOR=<host:port> MC_NUM_PROCS=P MC_PROC_ID=<r>; the process
@@ -16,7 +15,7 @@ from __future__ import annotations
 
 import sys
 
-from metacache_tpu.utils import ArgsParser
+from .utils import ArgsParser
 
 MODES = ("help", "build", "modify", "query", "info", "annotate", "merge")
 
@@ -49,10 +48,10 @@ def main(argv=None) -> int:
         from .modes.merge import main_mode_merge
         return main_mode_merge(args)
     if mode == "help":
-        from metacache_tpu.modes.help import main_mode_help
+        from .modes.help import main_mode_help
         return main_mode_help(args)
     if mode == "annotate":
-        from metacache_tpu.modes.annotate import main_mode_annotate
+        from .modes.annotate import main_mode_annotate
         return main_mode_annotate(args)
     print(f"unknown mode '{mode}'; available: {', '.join(MODES)}",
           file=sys.stderr)

@@ -12,15 +12,25 @@
 // location fetch (ops/lookup.py), the operation those probes were written
 // to replace.
 //
-// What bounds it on the card: device-memory latency and sector traffic.
-// Every valid slot reads one table word from a random place (a 32-byte
-// sector for 4 or 8 useful bytes) in a table far larger than the 50 MB
-// L2 at config-2 scale (696 MB), so the kernel is a latency-bound stream
-// of independent loads. The design keeps it that: one thread per output
-// element, coalesced reads of idx and writes of out, table loads through
-// the read-only path (__ldg), and no load at all for slots past n_valid
-// (a row holds on average far fewer matches than its capacity). Fusing
-// the slot expansion that computes idx into this kernel is later work.
+// What bounds it on the card: device-memory bytes. At config-2's lookup
+// shape the [16384, 256] int64 output (33.5 MB) is most of them; only
+// ~5% of the slots are valid, each reading its index and one 32-byte
+// sector of a table far larger than the 50 MB L2 (696 MB), a latency-
+// bound stream of independent loads. The design:
+//   - rows, not flat elements: a group of G lanes (G a power of two up to
+//     32, a whole warp unless the row is short) walks one row, reading
+//     n_valid[b] once, with no 64-bit division per element;
+//   - memory-level parallelism on the valid prefix: each lane first
+//     stores its vectors that lie wholly past n_valid, then issues the
+//     idx loads of the others, then their table loads, then stores them,
+//     so up to kUnroll * V loads of each kind are in flight per lane and
+//     the pad stores do not wait for them; slots past n_valid load
+//     nothing;
+//   - 16-byte stores (V = 16 / sizeof(T) elements) when a row's length
+//     keeps every row 16-byte aligned, one element per store otherwise,
+//     so the pad tail, most of the output, leaves as wide stores.
+// Fusing the slot expansion that computes idx into this kernel is later
+// work.
 //
 // Contract: the index of every slot below n_valid[b] lies in [0, N); the
 // lookup builds them in range, and the kernel does not check them. Slots
@@ -29,25 +39,79 @@
 // Plain C interface, bound with ctypes (metacache_tpu_torch/ops/
 // gather_cuda.py, built by ops/cuda_build.py). Each launcher returns
 // cudaGetLastError() after the launch; the caller allocates every buffer.
+#include <cstring>
+
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // vectors per lane in flight
+
+// V values of T as one store: 16 bytes, or a single element.
+template <typename T, int V>
+__device__ __forceinline__ void store(T* p, const T (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = v[0];
+  } else {
+    static_assert(V * sizeof(T) == 16, "a vector is 16 bytes");
+    int4 w;
+    memcpy(&w, v, 16);
+    *reinterpret_cast<int4*>(p) = w;
+  }
+}
+
 // 64-bit values are `long long` (not int64_t, which is `long` here) so
 // that __ldg resolves to its long long overload.
-template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ table,
-                                   const long long* __restrict__ idx,
-                                   const long long* __restrict__ n_valid,
-                                   T* __restrict__ out, long long total,
-                                   int L, T pad) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < total; e += stride) {
-    const long long b = e / L;
-    const int j = static_cast<int>(e - b * L);
-    out[e] = j < __ldg(n_valid + b) ? __ldg(table + __ldg(idx + e)) : pad;
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_kernel(const T* __restrict__ table,
+                       const long long* __restrict__ idx,
+                       const long long* __restrict__ n_valid,
+                       T* __restrict__ out, long long B, int L, int G,
+                       T pad) {
+  // G divides 32, so a group never straddles two warps
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  if (row >= B) return;
+  const int g = threadIdx.x & (G - 1);
+  const long long nv_row = __ldg(n_valid + row);
+  const int nv = static_cast<int>(nv_row < 0 ? 0 : nv_row < L ? nv_row : L);
+  const long long* irow = idx + row * L;
+  T* orow = out + row * L;
+  const int n_vec = L / V;
+  for (int q0 = g; q0 < n_vec; q0 += G * kUnroll) {
+    // vectors wholly past n_valid first: the store stream starts without
+    // waiting for the loads of the valid prefix
+    T pads[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) pads[e] = pad;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = q0 + u * G;
+      if (q < n_vec && q * V >= nv) store<T, V>(orow + q * V, pads);
+    }
+    long long id[kUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int j = (q0 + u * G) * V + e;
+        id[u][e] = j < nv ? __ldg(irow + j) : 0;
+      }
+    T val[kUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int j = (q0 + u * G) * V + e;
+        val[u][e] = j < nv ? __ldg(table + id[u][e]) : pad;
+      }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = q0 + u * G;
+      if (q < n_vec && q * V < nv) store<T, V>(orow + q * V, val[u]);
+    }
   }
 }
 
@@ -55,18 +119,24 @@ template <typename T>
 int launch(const void* table, const void* idx, const void* n_valid,
            void* out, long long B, int L, T pad, void* stream) {
   if (B < 0 || L < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = B * L;
-  if (total == 0) return 0;
-  const int threads = 256;
-  // enough blocks to fill the card many times over; the grid-stride loop
-  // covers the rest
-  const long long want = (total + threads - 1) / threads;
-  const long long blocks = want < 132 * 64 ? want : 132 * 64;
-  gather_rows_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(table), static_cast<const long long*>(idx),
-      static_cast<const long long*>(n_valid), static_cast<T*>(out), total,
-      L, pad);
+  if (B * L == 0) return 0;
+  constexpr int kV = 16 / sizeof(T);
+  const bool wide = L % kV == 0;
+  const int n_vec = wide ? L / kV : L;
+  int G = 1;  // lanes per row: enough for one vector each, at most a warp
+  while (G < 32 && G < n_vec) G *= 2;
+  const long long blocks = (B * G + kThreads - 1) / kThreads;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const T*>(table);
+  const auto* i = static_cast<const long long*>(idx);
+  const auto* n = static_cast<const long long*>(n_valid);
+  auto* o = static_cast<T*>(out);
+  if (wide)
+    gather_rows_kernel<T, kV><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                st>>>(t, i, n, o, B, L, G, pad);
+  else
+    gather_rows_kernel<T, 1><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               st>>>(t, i, n, o, B, L, G, pad);
   return static_cast<int>(cudaGetLastError());
 }
 

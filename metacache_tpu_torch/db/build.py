@@ -31,17 +31,15 @@ import numpy as np
 
 import torch
 
-from metacache_tpu import native
-from metacache_tpu.config import FEATURE_SENTINEL, BuildParams, SketchParams
-from metacache_tpu.db.database import Database
-from metacache_tpu.db.feature_table import ChunkedTripleSorter, FeatureTable
-from metacache_tpu.db.taxonomy import NONE_TAXID, Rank, Taxonomy
-from metacache_tpu.db.taxonomy import rank_from_name
-from metacache_tpu.io import sequence_io, taxonomy_io
-
+from .. import native
+from ..config import FEATURE_SENTINEL, BuildParams, SketchParams
 from ..device import resolve_device
+from ..io import sequence_io, taxonomy_io
 from ..ops import encode
 from ..ops.sketch_cuda import sketch_packed
+from .database import Database
+from .feature_table import ChunkedTripleSorter, FeatureTable
+from .taxonomy import NONE_TAXID, Rank, Taxonomy, rank_from_name
 
 #: input files at or above this size stream through the native SPILL path
 #: (per-shard sorted chunk files, bounded memory) instead of holding the
@@ -327,9 +325,7 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
     shard_ids = list(range(num_shards)) if shard_ids is None \
         else list(shard_ids)
     p = opt.params.sketch
-    if native.load_mcio() is None:
-        raise RuntimeError("the native sketcher (libmcio) could not be "
-                           "loaded or built")
+    native.load_mcio()   # the native sketcher: raises if it cannot be built
 
     taxonomy = taxonomy_io.make_taxonomic_hierarchy(
         opt.taxonomy_nodes, opt.taxonomy_names, opt.taxonomy_merged) \

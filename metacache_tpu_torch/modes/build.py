@@ -15,11 +15,10 @@ import sys
 
 import numpy as np
 
-from metacache_tpu.config import BuildParams, SketchParams
-from metacache_tpu.utils import ArgsParser, Timer, vm_rss_mb
-
+from ..config import BuildParams, SketchParams
 from ..db import build as build_mod
 from ..parallel import distributed
+from ..utils import ArgsParser, Timer, vm_rss_mb
 
 
 def get_build_options(args: ArgsParser) -> build_mod.BuildOptions:

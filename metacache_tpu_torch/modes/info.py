@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import sys
 
-from metacache_tpu.db.taxonomy import Rank, rank_from_name, rank_name
-from metacache_tpu.utils import ArgsParser
-
+from ..db.taxonomy import Rank, rank_from_name, rank_name
+from ..utils import ArgsParser
 from .query import load_all_shards
 
 

@@ -18,16 +18,15 @@ from typing import Dict, List, TextIO
 import numpy as np
 import torch
 
-from metacache_tpu.db.database import Database
-from metacache_tpu.db.taxonomy import Rank, Taxonomy, rank_from_name
-from metacache_tpu.io import taxonomy_io
-from metacache_tpu.query import abundance as abundance_mod
-from metacache_tpu.query import output as out_mod
-from metacache_tpu.query.stats import ClassificationStatistics
-from metacache_tpu.utils import ArgsParser, Timer
-
+from ..db.database import Database
+from ..db.taxonomy import Rank, Taxonomy, rank_from_name
 from ..device import resolve_device
+from ..io import taxonomy_io
 from ..ops.classify_op import classify_lca
+from ..query import abundance as abundance_mod
+from ..query import output as out_mod
+from ..query.stats import ClassificationStatistics
+from ..utils import ArgsParser, Timer
 from .query import QueryModeOptions, get_query_options
 
 

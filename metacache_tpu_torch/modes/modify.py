@@ -13,13 +13,12 @@ import sys
 
 import numpy as np
 
-from metacache_tpu.db.database import Database
-from metacache_tpu.db.feature_table import ChunkedTripleSorter
-from metacache_tpu.io import taxonomy_io
-from metacache_tpu.utils import ArgsParser
-
 from ..db import build as build_mod
+from ..db.database import Database
+from ..db.feature_table import ChunkedTripleSorter
 from ..device import resolve_device
+from ..io import taxonomy_io
+from ..utils import ArgsParser
 
 
 def main_mode_modify(args: ArgsParser) -> int:

@@ -19,29 +19,26 @@ from __future__ import annotations
 import dataclasses
 import os
 import queue
-import struct
 import sys
 import threading
-import zipfile
 from typing import Dict, List, Optional, TextIO
 
 import numpy as np
 import torch
 
-from metacache_tpu import native
-from metacache_tpu.config import ClassifyParams, QueryPipelineParams
-from metacache_tpu.db.database import Database, shard_path
-from metacache_tpu.db.feature_table import FeatureTable
-from metacache_tpu.db.taxonomy import Rank, rank_from_name
-from metacache_tpu.io import sequence_io
-from metacache_tpu.query import abundance as abundance_mod
-from metacache_tpu.query import output as out_mod
-from metacache_tpu.query.stats import ClassificationStatistics
-from metacache_tpu.utils import ArgsParser, Timer
-
+from .. import native
+from ..config import ClassifyParams, QueryPipelineParams
+from ..db.database import Database, shard_path
+from ..db.feature_table import FeatureTable
+from ..db.taxonomy import Rank, rank_from_name
 from ..device import resolve_device
+from ..io import sequence_io
 from ..parallel import ShardedQueryEngine, distributed
+from ..query import abundance as abundance_mod
+from ..query import output as out_mod
 from ..query.engine import QueryEngine, encode_read_into, tables_from_database
+from ..query.stats import ClassificationStatistics
+from ..utils import ArgsParser, Timer
 
 #: batches per dispatch window: window k is formatted while k+1 computes
 WINDOW = 8
@@ -258,56 +255,11 @@ def _window_k(opt: QueryModeOptions) -> int:
 
 
 # ---------------------------------------------------------------------------
-FEATURE_ARRAYS = ("keys", "offsets", "loc_tgt", "loc_win")
-
-
-def npz_memmap(path: str, names) -> Optional[Dict[str, np.ndarray]]:
-    """Read-only memmaps of uncompressed members of an npz, located with
-    NumPy's public .npy header readers (the port's counterpart of
-    Database._npz_memmap, metacache_tpu/db/database.py:160-197, which calls
-    a NumPy-private parser). Shard files are written uncompressed, so each
-    member is a raw .npy at a fixed offset inside the zip. Returns None if
-    a member is compressed or not a plain C-order array: the caller then
-    reads the arrays whole."""
-    from numpy.lib import format as npfmt
-    readers = {(1, 0): npfmt.read_array_header_1_0,
-               (2, 0): npfmt.read_array_header_2_0}
-    out = {}
-    with zipfile.ZipFile(path) as zf, open(path, "rb") as fh:
-        for name in names:
-            info = zf.getinfo(name + ".npy")
-            if info.compress_type != zipfile.ZIP_STORED:
-                return None
-            fh.seek(info.header_offset)
-            local = fh.read(30)
-            if local[:4] != b"PK\x03\x04":
-                return None
-            fnlen, extralen = struct.unpack("<HH", local[26:30])
-            fh.seek(info.header_offset + 30 + fnlen + extralen)
-            read = readers.get(npfmt.read_magic(fh))
-            if read is None:
-                return None
-            shape, fortran, dtype = read(fh)
-            if fortran or dtype.hasobject:
-                return None
-            if int(np.prod(shape)) == 0:
-                out[name] = np.zeros(shape, dtype)
-            else:
-                out[name] = np.memmap(path, dtype=dtype, mode="r",
-                                      offset=fh.tell(), shape=shape)
-    return out
-
-
 def load_shard(dbname: str, s: int) -> Database:
     """One shard with its feature table memory-mapped (a whole read only
     for compressed members): the tables stay in evictable file-backed
     pages until they are uploaded or merged."""
-    mm = npz_memmap(shard_path(dbname, s), FEATURE_ARRAYS)
-    if mm is None:
-        return Database.load(dbname, s)
-    db = Database.load(dbname, s, metadata_only=True)
-    db.features = FeatureTable(**mm)
-    return db
+    return Database.load(dbname, s, mmap=True)
 
 
 def count_shards(dbname: str) -> int:
@@ -441,9 +393,7 @@ class QueryProcessor:
         dispatched before the previous window is materialized and
         formatted, so host formatting overlaps device compute. A reader
         thread parses ahead (the native parse releases the GIL)."""
-        if native.load_mcio() is None:
-            raise RuntimeError("the native reader (libmcio) could not be "
-                               "loaded or built")
+        native.load_mcio()   # the native reader: raises if it cannot be built
         reader = native.NativeBatchReader(
             f1, f2, self.opt.pairing, self.opt.pipeline.batch_size,
             self.opt.pipeline.max_query_len,
@@ -744,8 +694,8 @@ def main_mode_query(args: ArgsParser) -> int:
         o.query_mappings_file, o.split_files = os.devnull, False
         o.abundance_file = o.targets_file = ""
     if opt.output.show_db_properties:
-        from metacache_tpu.db.database import (print_content_properties,
-                                               print_static_properties)
+        from ..db.database import (print_content_properties,
+                                   print_static_properties)
         print_static_properties(db)
         print_content_properties(db)
     # ONE engine (the database on the device) serves every output group

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from metacache_tpu.config import TARGET_SENTINEL
+from ..config import TARGET_SENTINEL
 
 _BIG32 = int(TARGET_SENTINEL)            # 2^31 - 1: "no key"
 _BIG64 = torch.iinfo(torch.int64).max

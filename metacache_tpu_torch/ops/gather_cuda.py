@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import CudaLibrary
+from .cuda_build import CudaLibrary, describe, launch
 from .gather import gather_rows_reference
 
 #: number of kernel launches made by gather_rows (not by the plain path)
@@ -32,6 +32,15 @@ def _declare(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("gather.cu", "libmc_gather", _declare)
 
 _ENTRY = {torch.int32: "mc_gather_rows_i32", torch.int64: "mc_gather_rows_i64"}
+#: the loaded C launchers, by table dtype
+_FNS = {}
+
+
+def _launcher(dtype: torch.dtype):
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = _FNS[dtype] = getattr(LIBRARY.load(), _ENTRY[dtype])
+    return fn
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
@@ -46,35 +55,29 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
         return gather_rows_reference(table, idx, n_valid, pad)
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {table.device}")
-    dev = table.device
-    if idx.dim() != 2:
-        raise ValueError(f"gather_rows: idx must be [B, L], got "
-                         f"{tuple(idx.shape)}")
+    # the checks in one expression of cheap reads (no torch.device or
+    # iinfo objects): this path runs once per batch and shard
+    d = table.get_device()
+    dtype = table.dtype
+    if not (idx.dim() == 2 and idx.get_device() == d
+            and n_valid.get_device() == d and dtype in _ENTRY
+            and idx.dtype is torch.int64 and n_valid.dtype is torch.int64
+            and table.dim() == 1 and n_valid.shape == idx.shape[:1]
+            and table.is_contiguous() and idx.is_contiguous()
+            and n_valid.is_contiguous()
+            and (table.numel() > 0 or idx.numel() == 0)
+            and -(1 << (8 * table.element_size() - 1)) <= pad
+            < 1 << (8 * table.element_size() - 1)):
+        raise ValueError(
+            "gather_rows takes a contiguous int32 or int64 table [N] (N > 0 "
+            "unless idx is empty), int64 idx [B, L] and n_valid [B] on one "
+            f"device, and a pad that fits the table's dtype; got "
+            f"{describe(table=table, idx=idx, n_valid=n_valid)}, pad {pad}")
     B, L = idx.shape
-    for name, t, dtypes, shape in (
-            ("table", table, tuple(_ENTRY), (table.numel(),)),
-            ("idx", idx, (torch.int64,), (B, L)),
-            ("n_valid", n_valid, (torch.int64,), (B,))):
-        if t.device != dev or t.dtype not in dtypes \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"gather_rows: {name} must be a contiguous tensor of shape "
-                f"{shape} and dtype {' or '.join(map(str, dtypes))} on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if table.numel() == 0 and B * L:
-        raise ValueError("gather_rows: empty table")
-    info = torch.iinfo(table.dtype)
-    if not info.min <= pad <= info.max:
-        raise ValueError(f"gather_rows: pad {pad} does not fit {table.dtype}")
-    out = torch.empty((B, L), dtype=table.dtype, device=dev)
+    out = torch.empty((B, L), dtype=dtype, device=table.device)
     if out.numel() == 0:
         return out
-    fn = getattr(LIBRARY.load(), _ENTRY[table.dtype])
-    with torch.cuda.device(dev):
-        rc = fn(table.data_ptr(), idx.data_ptr(), n_valid.data_ptr(),
-                out.data_ptr(), B, L, int(pad),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gather kernel launch failed: CUDA error {rc}")
+    launch(d, _launcher(dtype), table.data_ptr(), idx.data_ptr(),
+           n_valid.data_ptr(), out.data_ptr(), B, L, int(pad))
     launches += 1
     return out

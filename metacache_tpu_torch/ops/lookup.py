@@ -24,8 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from metacache_tpu.config import FEATURE_SENTINEL, TARGET_SENTINEL
-
+from ..config import FEATURE_SENTINEL, TARGET_SENTINEL
 from .gather_cuda import gather_rows
 
 #: packed location word: (target << LOC_SHIFT) | window, as int64, so the

@@ -13,8 +13,7 @@ from typing import Sequence
 
 import torch
 
-from metacache_tpu.config import FEATURE_SENTINEL
-
+from ..config import FEATURE_SENTINEL
 from .encode import AMBIG_CODE, unpack_codes, window_kmers
 from .hashes import thomas_mueller_hash
 

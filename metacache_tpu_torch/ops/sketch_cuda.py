@@ -12,11 +12,10 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from .cuda_build import CudaLibrary
+from .cuda_build import CudaLibrary, describe, launch
 from .sketch import sketch_packed_reference
 
-#: must equal kMaxSketchLarge in csrc/sketch.cu (sizes up to 64 run the
-#: kMaxSketch instantiation)
+#: must equal kMaxSketch in csrc/sketch.cu
 MAX_SKETCH_SIZE = 256
 
 #: number of kernel launches made by sketch_packed (not by the plain path)
@@ -34,9 +33,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("sketch.cu", "libmc_sketch", _declare)
 
 
-def _starts_tensor(device: torch.device,
-                   starts: Tuple[int, ...]) -> torch.Tensor:
-    key = (device.index, starts)
+def _starts_tensor(device: int, starts: Tuple[int, ...]) -> torch.Tensor:
+    key = (device, starts)
     t = _starts_cache.get(key)
     if t is None:
         t = torch.tensor(starts, dtype=torch.int32, device=device)
@@ -53,41 +51,39 @@ def sketch_packed(packed: torch.Tensor, ambig: torch.Tensor,
     [B, len(starts) * sketch_size] int64 (u32 values; each window's
     block ascending, padded with 0xFFFFFFFF)."""
     global launches
-    starts = tuple(int(s) for s in starts)
+    if type(starts) is not tuple:
+        starts = tuple(int(s) for s in starts)
     if packed.device.type == "cpu":
         return sketch_packed_reference(
             packed, ambig, lens, k=k, sketch_size=sketch_size,
             window_size=window_size, starts=starts)
     if packed.device.type != "cuda":
         raise ValueError(f"sketch_packed: unsupported device {packed.device}")
+    # the checks in one expression of cheap reads (no torch.device
+    # objects): this path runs once per batch, mate and device
+    d = packed.get_device()
+    if not (packed.dim() == 2 and ambig.get_device() == d
+            and lens.get_device() == d and packed.dtype is torch.uint8
+            and ambig.dtype is torch.uint8 and lens.dtype is torch.int32
+            and packed.shape[1] % 2 == 0
+            and ambig.shape == (packed.shape[0], packed.shape[1] // 2)
+            and lens.shape == packed.shape[:1] and packed.is_contiguous()
+            and ambig.is_contiguous() and lens.is_contiguous()
+            and 1 <= k <= 16 and 1 <= sketch_size <= MAX_SKETCH_SIZE):
+        raise ValueError(
+            "sketch_packed takes contiguous uint8 packed [B, L/4] with L % 8 "
+            "== 0, uint8 ambig [B, L/8] and int32 lens [B] on one device, "
+            f"1 <= k <= 16 and 1 <= sketch_size <= {MAX_SKETCH_SIZE}; got "
+            + describe(packed=packed, ambig=ambig, lens=lens)
+            + f", k {k}, sketch_size {sketch_size}")
     B, P4 = packed.shape
-    dev = packed.device
-    for name, t, dtype, shape in (("packed", packed, torch.uint8, (B, P4)),
-                                  ("ambig", ambig, torch.uint8, (B, P4 // 2)),
-                                  ("lens", lens, torch.int32, (B,))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"sketch_packed: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {dev}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    if P4 % 2 or not 1 <= k <= 16 or not 1 <= sketch_size <= MAX_SKETCH_SIZE:
-        raise ValueError(f"sketch_packed: unsupported L={P4 * 4} k={k} "
-                         f"sketch_size={sketch_size} (the CUDA kernel takes "
-                         f"L % 8 == 0, 1 <= k <= 16 and sketch sizes up to "
-                         f"{MAX_SKETCH_SIZE})")
     out = torch.empty((B, len(starts) * sketch_size), dtype=torch.int64,
-                      device=dev)
+                      device=packed.device)
     if out.numel() == 0:
         return out
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        rc = lib.mc_sketch_packed(
-            packed.data_ptr(), ambig.data_ptr(), lens.data_ptr(),
-            _starts_tensor(dev, starts).data_ptr(), out.data_ptr(),
-            B, P4, P4 // 2, len(starts), k, sketch_size, window_size,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"sketch kernel launch failed: CUDA error {rc}")
+    launch(d, LIBRARY.load().mc_sketch_packed, packed.data_ptr(),
+           ambig.data_ptr(), lens.data_ptr(),
+           _starts_tensor(d, starts).data_ptr(), out.data_ptr(), B, P4,
+           P4 // 2, len(starts), k, sketch_size, window_size)
     launches += 1
     return out

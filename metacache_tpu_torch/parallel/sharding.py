@@ -36,9 +36,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from metacache_tpu.config import ClassifyParams, QueryPipelineParams
-from metacache_tpu.db.database import Database
-
+from ..config import ClassifyParams, QueryPipelineParams
+from ..db.database import Database
 from ..ops.candidates import merge_candidates
 from ..query.engine import (EngineBase, feature_tables, fetch_summary,
                             make_target_groups, tables_from_database,

@@ -32,10 +32,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from metacache_tpu.config import ClassifyParams, QueryPipelineParams
-from metacache_tpu.db.database import Database
-from metacache_tpu.db.taxonomy import Rank, rank_from_name
-
+from ..config import ClassifyParams, QueryPipelineParams
+from ..db.database import Database
+from ..db.taxonomy import Rank, rank_from_name
 from ..ops import encode
 from ..ops.candidates import generate_candidates
 from ..ops.classify_op import classify_lca

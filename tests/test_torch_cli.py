@@ -2,10 +2,10 @@
 (python -m metacache_tpu.cli) on a mock world: `build` (native and
 WindowBatcher paths) and `modify` write shard files equal array by array;
 `query -device cpu` (with -exclude, -hits-per-seq, -align, -mesh and in
-interactive mode), `merge` and `info` write byte-identical output (the
-run-dependent '# time:' / '# speed:' lines aside). Also: the port runs
-with JAX made unimportable, and it maps shard tables instead of reading
-them."""
+interactive mode), `merge`, `info`, `help` and `annotate` write
+byte-identical output (the run-dependent '# time:' / '# speed:' lines
+aside). Also: the port runs with JAX and the JAX package made
+unimportable, and it maps shard tables instead of reading them."""
 import os
 import shutil
 import subprocess
@@ -161,6 +161,7 @@ def test_splitout_equals_jax(world):
 _NO_JAX = """
 import sys
 sys.modules["jax"] = None
+sys.modules["metacache_tpu"] = None
 from metacache_tpu_torch.cli import main
 rc = main(["build", "nojaxdb", "genomes.fa", "-taxonomy", "tax", "-silent"])
 assert rc == 0, rc
@@ -185,15 +186,26 @@ rc = main(["info", "nojaxdb", "rank", "species"])
 assert rc == 0, rc
 rc = main(["modify", "nojaxdb", "extra.fa", "-device", "cpu"])
 assert rc == 0, rc
+rc = main(["help", "query"])
+assert rc == 0, rc
+rc = main(["annotate", "extra.fa", "taxid", "-mapping-files", "extra.map",
+           "-out", "nojax_annotated.fa"])
+assert rc == 0, rc
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
+assert not any(m == "metacache_tpu" or m.startswith("metacache_tpu.")
+               for m in sys.modules if sys.modules[m] is not None)
 """
 
 
 def test_port_runs_without_jax(world):
+    """The port's modes with both JAX and the JAX package unimportable."""
     mock.write_fasta(os.path.join(world, "extra.fa"),
                      [("NC_777777.1 extra", mock.random_genome(
                          np.random.default_rng(5), 3000))])
+    with open(os.path.join(world, "extra.map"), "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\n"
+                "NC_777777\tNC_777777.1\t4242\t1\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                        text=True, cwd=world, env=env, timeout=600)
@@ -208,6 +220,48 @@ def test_port_runs_without_jax(world):
         _result_lines(os.path.join(world, "nojax.txt"))
     assert "shard 1 on cpu" in r.stderr
     assert "Added 1 reference sequences." in r.stdout
+    assert 'mode "query"' in r.stdout
+    with open(os.path.join(world, "nojax_annotated.fa")) as f:
+        assert f.readline() == ">NC_777777.1|taxid|4242| extra\n"
+
+
+@pytest.mark.parametrize("topic", [[], ["build"], ["query"], ["modify"],
+                                   ["info"], ["annotate"], ["merge"],
+                                   ["nonsense"]],
+                         ids=["quick", "build", "query", "modify", "info",
+                              "annotate", "merge", "unknown"])
+def test_help_equals_jax(world, topic):
+    rj = jax_cli(["help"] + topic, world)
+    rt = port_cli(["help"] + topic, world)
+    assert (rt.returncode, rt.stdout, rt.stderr) == \
+        (rj.returncode, rj.stdout, rj.stderr)
+    assert len(rt.stdout.splitlines()) > 10 or topic == ["nonsense"]
+
+
+def test_annotate_equals_jax(world):
+    """annotate: FASTA to stdout and FASTQ to -out; two ids are in the
+    mapping, one is not."""
+    with open(os.path.join(world, "annot.map"), "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\n"
+                "NC_000001\tNC_000001.1\t101\t1\n"
+                "NC_000002\tNC_000002.3\t102\t2\n")
+    recs = [("NC_000001.1 first", "ACGT" * 10),
+            ("NC_000002.3 second", "GGCC" * 10),
+            ("NC_000003.1 unknown", "TTAA" * 10)]
+    mock.write_fasta(os.path.join(world, "annot.fa"), recs)
+    mock.write_fastq(os.path.join(world, "annot.fq"), recs)
+    outs = []
+    for cli, tag in ((jax_cli, "j"), (port_cli, "t")):
+        fa = cli(["annotate", "annot.fa", "taxid", "-mapping-files",
+                  "annot.map"], world)
+        fq = cli(["annotate", "annot.fq", "taxid", "-mapping-files",
+                  "annot.map", "-out", f"{tag}annot.fq"], world)
+        with open(os.path.join(world, f"{tag}annot.fq")) as f:
+            outs.append((fa.returncode, fa.stdout, fa.stderr, fq.returncode,
+                         fq.stdout, fq.stderr, f.read()))
+    assert outs[1] == outs[0]
+    assert "|taxid|101|" in outs[0][1] and "|taxid|102|" in outs[0][6]
+    assert "Annotated 2 sequences." in outs[0][2]
 
 
 @pytest.fixture(scope="module")

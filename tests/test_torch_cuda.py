@@ -59,7 +59,7 @@ def test_kernel_matches_plain(dev, B, L, k, s):
 @pytest.mark.parametrize("s", [65, 80, 256])
 def test_kernel_matches_plain_large_sketch(dev, s):
     """Sketch sizes over 64 (the build's WindowBatcher path) run the
-    kernel's 256-entry instantiation."""
+    kernel's instantiation with 8 sketch registers per lane."""
     p, a, lens = reads(s, 512, 128)
     args = [torch.from_numpy(x).to(dev) for x in (p, a, lens)]
     kw = dict(k=16, sketch_size=s, window_size=128, starts=(0,))
@@ -68,6 +68,41 @@ def test_kernel_matches_plain_large_sketch(dev, s):
     with pytest.raises(ValueError):
         sketch_cuda.sketch_packed(*args, k=16, sketch_size=257,
                                   window_size=128, starts=(0,))
+
+
+def _ambiguous_at(a, rows, positions):
+    for r in rows:
+        for pos in positions:
+            if pos >> 3 < a.shape[1]:
+                a[r, pos >> 3] |= np.uint8(1 << (pos & 7))
+
+
+@pytest.mark.parametrize("L,W,stride,k,s,B", [
+    (1024, 1000, 1000, 16, 16, 64),     # a window of several chunks
+    (1024, 300, 200, 16, 16, 64),       # windows past one warp pass, n_win 5
+    (256, 40, 7, 9, 8, 33),             # short windows, n_win 31
+    (64, 128, 113, 16, 100, 64),        # s above the k-mer count
+    (320, 128, 113, 1, 4, 64),          # k 1
+    (320, 128, 113, 16, 256, 64),       # k 16, the largest sketch
+    (104, 128, 113, 16, 16, 1),         # one read
+], ids=["several-chunks", "n_win-5", "n_win-31", "s-over-kmers", "k1",
+        "k16-s256", "B1"])
+def test_kernel_edges(dev, L, W, stride, k, s, B):
+    """Edges of the warp-per-window design: windows longer than a warp
+    pass or a staged chunk, several windows per read, fewer k-mers than
+    s, k 1 and 16, one read, and ambiguous bases at the 32-character
+    lane boundaries and the 128-character chunk boundaries."""
+    p, a, lens = reads(L + W + k + s + B, B, L, ambig_rate=0.005)
+    lens[B // 2:] = L
+    _ambiguous_at(a, range(B // 2, B, 2),
+                  (15, 31, 32, 63, 64, 127, 128, 129, 255, 256, 511, 512))
+    starts = tuple(int(x) for x in encode.window_starts(L, W, stride))
+    args = [torch.from_numpy(x).to(dev) for x in (p, a, lens)]
+    kw = dict(k=k, sketch_size=s, window_size=W, starts=starts)
+    got = sketch_cuda.sketch_packed(*args, **kw)
+    want = sketch_packed_reference(*args, **kw)
+    assert got.shape == (B, len(starts) * s)
+    assert torch.equal(got, want)
 
 
 def gather_case(dev, seed, B, L, N, dtype, full=False):
@@ -97,6 +132,28 @@ def test_gather_kernel_matches_plain(dev, B, L, N, dtype, full):
     assert gather_cuda.launches == before + 1
     want = gather_rows_reference(table, idx, n_valid, pad)
     assert got.dtype == table.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L,dtype", [(257, np.int64), (130, np.int32),
+                                     (3, np.int64), (5, np.int32),
+                                     (256, np.int64), (128, np.int32)])
+def test_gather_kernel_row_edges(dev, L, dtype):
+    """Row lengths that are and are not a multiple of the 16-byte vector,
+    short rows (several rows per warp), and in each case empty rows, full
+    rows and rows whose valid prefix ends inside a vector."""
+    B = 97
+    table, idx, n_valid = gather_case(dev, L, B, L, 5000, dtype)
+    n_valid[2:12] = 0
+    n_valid[12:22] = L
+    n_valid[22:32] = torch.arange(1, 11, device=dev).clamp(max=L)
+    n_valid[32] = L + 5          # past the row: every slot valid
+    n_valid[33] = -3             # below zero: none
+    past = torch.arange(L, device=dev)[None, :] >= n_valid[:, None]
+    idx = torch.where(past, -5, idx.clamp(min=0))     # never read
+    pad = -123
+    got = gather_cuda.gather_rows(table, idx, n_valid, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_reference(table, idx, n_valid, pad))
 
 
 def test_gather_kernel_rows_with_nothing_valid(dev):
@@ -187,8 +244,8 @@ FIELDS = ["best", "best_rank", "match_total", "match_overflow", "cand_tax",
 @pytest.mark.parametrize("options", [False, True],
                          ids=["plain", "exclusion-window-hits"])
 def test_engine_cuda_matches_cpu(dev, tmp_path, options):
-    from metacache_tpu.config import ClassifyParams, QueryPipelineParams
-    from metacache_tpu.db.taxonomy import Rank
+    from metacache_tpu_torch.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu_torch.db.taxonomy import Rank
     from metacache_tpu_torch.query.engine import QueryEngine
 
     (db,), (c1, l1, c2, l2), rng = engine_world(tmp_path, 1)
@@ -218,7 +275,7 @@ def test_sharded_engine_cuda_matches_cpu(dev, tmp_path):
     """Two shards on one card (the one-card -mesh placement), with window
     hit counts, against the same two shards on the CPU; both kernels
     launch once per batch on the card (one sketch per device)."""
-    from metacache_tpu.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu_torch.config import ClassifyParams, QueryPipelineParams
     from metacache_tpu_torch.parallel import ShardedQueryEngine
 
     dbs, inputs, _ = engine_world(tmp_path, 2)

@@ -5,23 +5,41 @@ for reads whose match lists overflow lmax. Exact equality.
 
 lmax stays >= 64: the JAX engine's fast tier has a floor of 64 slots, so
 below that it classifies untruncated where a single-tier run (the port)
-truncates at lmax."""
+truncates at lmax.
+
+The port's side gets the JAX-built database through plain arrays
+(database_from_arrays) and its parameters from its own config."""
 import numpy as np
 import pytest
 import torch
 
-from metacache_tpu.config import ClassifyParams, QueryPipelineParams
+from metacache_tpu import config as jconfig
 from metacache_tpu.db.build import BuildOptions, build_database
-from metacache_tpu.db.taxonomy import Rank
 from metacache_tpu.query.engine import QueryEngine as JaxEngine
 from metacache_tpu.query.engine import encode_read_into
+from metacache_tpu_torch import config as tconfig
+from metacache_tpu_torch.db.taxonomy import Rank
 from metacache_tpu_torch.query import engine as teng
 from tests import util_mockdata as mock
+from tests.test_torch_self_contained import port_db
 
 torch.set_num_threads(1)
 
 FIELDS = ("best", "best_rank", "match_total", "match_overflow", "cand_tax",
           "cand_hits", "cand_beg", "cand_end", "cand_tgt")
+
+
+
+def params(**pipeline):
+    """(JAX, port) QueryPipelineParams with the same values."""
+    return (jconfig.QueryPipelineParams(**pipeline),
+            tconfig.QueryPipelineParams(**pipeline))
+
+
+def classify_params(**classify):
+    """(JAX, port) ClassifyParams with the same values."""
+    return (jconfig.ClassifyParams(**classify),
+            tconfig.ClassifyParams(**classify))
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +54,7 @@ def world(tmp_path_factory):
             recs.append((f"NC_{10 * i + v:06d}.1|taxid|{taxids[i]}| v",
                          g if v == 0 else mock.mutate(rng, g, 0.015)))
     mock.write_fasta(fasta, recs)
-    db = build_database([fasta], BuildOptions(
+    jdb = build_database([fasta], BuildOptions(
         taxonomy_nodes=nodes, taxonomy_names=names, taxonomy_merged=merged))
     seqs = [s for _, s in recs]
     reads = []
@@ -50,7 +68,7 @@ def world(tmp_path_factory):
         if q % 13 == 0:
             a, b = mock.random_genome(rng, 100), ""
         reads.append((a, b))
-    return db, reads
+    return jdb, port_db(jdb), reads
 
 
 def batch(reads, eng, paired):
@@ -68,14 +86,15 @@ def batch(reads, eng, paired):
 @pytest.mark.parametrize("lmax", [64, 512])
 @pytest.mark.parametrize("paired", [False, True])
 def test_engine_matches_jax(world, lowest, lmax, paired):
-    db, reads = world
-    classify = ClassifyParams(lowest_rank=lowest, max_candidates=3)
-    pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
-                                   max_locations_per_query=lmax)
+    jdb, db, reads = world
+    jclassify, classify = classify_params(lowest_rank=lowest,
+                                          max_candidates=3)
+    jpipeline, pipeline = params(batch_size=128, max_query_len=128,
+                                 max_locations_per_query=lmax)
     eng = teng.QueryEngine(db, classify, pipeline, device=torch.device("cpu"))
     inputs = batch(reads, eng, paired)
     n = len(reads)
-    want = JaxEngine(db, classify, pipeline).classify_batch(*inputs, n)
+    want = JaxEngine(jdb, jclassify, jpipeline).classify_batch(*inputs, n)
     got = eng.classify_batch(*inputs, n)
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(got, f)[:n],
@@ -90,13 +109,14 @@ def test_engine_matches_jax(world, lowest, lmax, paired):
 def test_engine_with_exclusion_matches_jax(world, rank, lmax):
     """Clade exclusion: each read excludes the clade (on `rank`) of a
     target drawn for it, or nothing."""
-    db, reads = world
-    classify = ClassifyParams(lowest_rank="species", max_candidates=3)
-    pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
-                                   max_locations_per_query=lmax)
+    jdb, db, reads = world
+    jclassify, classify = classify_params(lowest_rank="species",
+                                          max_candidates=3)
+    jpipeline, pipeline = params(batch_size=128, max_query_len=128,
+                                 max_locations_per_query=lmax)
     rcode = getattr(Rank, rank.upper())
     eng = teng.QueryEngine(db, classify, pipeline, device=torch.device("cpu"))
-    jeng = JaxEngine(db, classify, pipeline)
+    jeng = JaxEngine(jdb, jclassify, jpipeline)
     eng.set_exclusion(rcode)
     jeng.set_exclusion(rcode)
     rng = np.random.default_rng(lmax)
@@ -124,14 +144,15 @@ def test_engine_target_window_hits_matches_jax(world, paired):
     list fills all lmax slots here: on a full list the JAX engine counts
     one too many in the last (target, window) run (see
     test_torch_ops.py::test_target_window_hits_on_full_rows)."""
-    db, reads = world
-    classify = ClassifyParams(lowest_rank="sequence", max_candidates=3)
-    pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
-                                   max_locations_per_query=512)
+    jdb, db, reads = world
+    jclassify, classify = classify_params(lowest_rank="sequence",
+                                          max_candidates=3)
+    jpipeline, pipeline = params(batch_size=128, max_query_len=128,
+                                 max_locations_per_query=512)
     eng = teng.QueryEngine(db, classify, pipeline, target_window_k=16)
     inputs = batch(reads, eng, paired)
     n = len(reads)
-    want = JaxEngine(db, classify, pipeline,
+    want = JaxEngine(jdb, jclassify, jpipeline,
                      target_window_k=16).classify_batch(*inputs, n)
     got = eng.classify_batch(*inputs, n)
     for f in FIELDS + ("target_window_hits",):
@@ -146,10 +167,10 @@ def test_engine_target_window_hits_matches_jax(world, paired):
 def test_dispatch_window_equals_single_batches(world):
     """materialize_many over several dispatched batches gives what each
     batch gives alone."""
-    db, reads = world
-    pipeline = QueryPipelineParams(batch_size=32, max_query_len=128,
-                                   max_locations_per_query=64)
-    eng = teng.QueryEngine(db, ClassifyParams(), pipeline)
+    _, db, reads = world
+    pipeline = tconfig.QueryPipelineParams(batch_size=32, max_query_len=128,
+                                           max_locations_per_query=64)
+    eng = teng.QueryEngine(db, tconfig.ClassifyParams(), pipeline)
     from metacache_tpu_torch.ops.encode import np_pack_codes
     packed = []
     for o in range(0, 96, 32):
@@ -166,7 +187,7 @@ def test_dispatch_window_equals_single_batches(world):
 
 
 def test_tables_from_database(world):
-    db, _ = world
+    _, db, _ = world
     t = teng.tables_from_database(db, torch.device("cpu"), Rank.SPECIES)
     ft = db.features
     np.testing.assert_array_equal(t["keys"].numpy(), ft.keys)

@@ -7,7 +7,6 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from metacache_tpu.config import FEATURE_SENTINEL, TARGET_SENTINEL
 from metacache_tpu.ops import candidates as jcand
 from metacache_tpu.ops import classify_op as jclassify
 from metacache_tpu.ops import encode as jencode
@@ -17,6 +16,7 @@ from metacache_tpu.ops import sketch as jsketch
 from metacache_tpu.ops.sketch_pallas import sketch_packed_pallas
 from metacache_tpu.query import engine as jengine
 from metacache_tpu.query.engine import encode_read_into, local_candidates
+from metacache_tpu_torch.config import FEATURE_SENTINEL, TARGET_SENTINEL
 from metacache_tpu_torch.ops import candidates as tcand
 from metacache_tpu_torch.ops import classify_op as tclassify
 from metacache_tpu_torch.ops import encode as tencode
@@ -449,7 +449,8 @@ CLASSIFY_CASES = {
 
 @pytest.mark.parametrize("case", sorted(CLASSIFY_CASES))
 def test_classify_lca_named_cases_match_jax(case):
-    from metacache_tpu.db.taxonomy import Rank
+    from metacache_tpu.db.taxonomy import Rank as JRank
+    from metacache_tpu_torch.db.taxonomy import Rank
     t, _ = make_taxonomy()
     cands, hits_min, frac = CLASSIFY_CASES[case]
     tax = np.zeros((1, 4), np.int32)
@@ -458,7 +459,7 @@ def test_classify_lca_named_cases_match_jax(case):
         tax[0, i], hits[0, i] = t.node_of_id(sid), h
     lin = t.ranked_lineage
     wb, wr = jclassify.classify_lca(tax, hits, lin, np.int32(hits_min),
-                                    np.float32(frac), Rank.DOMAIN)
+                                    np.float32(frac), JRank.DOMAIN)
     gb, gr = tclassify.classify_lca(t64(tax), t64(hits), t64(lin), hits_min,
                                     frac, Rank.DOMAIN)
     assert (int(gb[0]), int(gr[0])) == (int(wb[0]), int(wr[0]))

@@ -6,31 +6,39 @@ _dedup_topk. Exact equality.
 
 lmax stays >= 64 (the JAX engine's fast-tier floor) and, where window hit
 counts are compared, every match list stays below lmax (the JAX
-target_window_hits fault on full lists, ROADMAP Queue 3)."""
+target_window_hits fault on full lists, ROADMAP Queue 3).
+
+The port's side gets the JAX-built shards through plain arrays
+(database_from_arrays) and its parameters from its own config."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from metacache_tpu.config import (TARGET_SENTINEL, ClassifyParams,
-                                  QueryPipelineParams)
+from metacache_tpu import config as jconfig
+from metacache_tpu.config import TARGET_SENTINEL
 from metacache_tpu.db.build import BuildOptions, build_database
-from metacache_tpu.db.taxonomy import Rank
 from metacache_tpu.ops.candidates import _dedup_topk
 from metacache_tpu.parallel import ShardedQueryEngine as JaxSharded
 from metacache_tpu.parallel import make_mesh
 from metacache_tpu.query.engine import encode_read_into
+from metacache_tpu_torch.config import ClassifyParams, QueryPipelineParams
+from metacache_tpu_torch.db.taxonomy import Rank
 from metacache_tpu_torch.ops.candidates import merge_candidates
 from metacache_tpu_torch.parallel import ShardedQueryEngine, place_shards
 from metacache_tpu_torch.query.engine import QueryEngine
 from tests import util_mockdata as mock
+from tests.test_torch_self_contained import port_db
 
 torch.set_num_threads(1)
 
 FIELDS = ("best", "best_rank", "match_total", "match_overflow", "cand_tax",
           "cand_hits", "cand_beg", "cand_end", "cand_tgt")
 CAND = ("tax", "hits", "beg", "end", "tgt")
+
 
 
 def shard_lists(seed, B, P, C, n_targets, empty_rate):
@@ -106,9 +114,10 @@ def world(tmp_path_factory):
         if q % 13 == 0:
             a, b = mock.random_genome(rng, 100), ""
         reads.append((a, b))
-    shards = {n: [build_database([fasta], opt, num_shards=n, shard_id=s)
-                  for s in range(n)] for n in (2, 4, 8)}
-    return build_database([fasta], opt), shards, reads
+    jshards = {n: [build_database([fasta], opt, num_shards=n, shard_id=s)
+                   for s in range(n)] for n in (2, 4, 8)}
+    shards = {n: [port_db(d) for d in dbs] for n, dbs in jshards.items()}
+    return (port_db(build_database([fasta], opt)), shards, reads, jshards)
 
 
 def batch(reads, pipeline, paired):
@@ -123,13 +132,16 @@ def batch(reads, pipeline, paired):
 
 
 def engines(world, nshards, classify, pipeline, twk=0):
-    """(port sharded, JAX sharded, port single) engines."""
-    single, shards, _ = world
-    dbs = shards[nshards]
-    port = ShardedQueryEngine(dbs, classify, pipeline,
+    """(port sharded, JAX sharded, port single) engines; the JAX one gets
+    its own ClassifyParams / QueryPipelineParams of the same values."""
+    single, shards, _, jshards = world
+    port = ShardedQueryEngine(shards[nshards], classify, pipeline,
                               place_shards(range(nshards), "cpu"),
                               target_window_k=twk)
-    jx = JaxSharded(dbs, classify, pipeline,
+    jx = JaxSharded(jshards[nshards],
+                    jconfig.ClassifyParams(**dataclasses.asdict(classify)),
+                    jconfig.QueryPipelineParams(
+                        **dataclasses.asdict(pipeline)),
                     make_mesh(jax.devices()[:nshards]), target_window_k=twk)
     return port, jx, QueryEngine(single, classify, pipeline,
                                  target_window_k=twk)
@@ -145,7 +157,7 @@ def assert_equal(got, want, n, fields=FIELDS):
 @pytest.mark.parametrize("paired", [False, True])
 @pytest.mark.parametrize("nshards", [2, 4, 8])
 def test_sharded_matches_jax_and_single(world, nshards, paired):
-    _, _, reads = world
+    reads = world[2]
     classify = ClassifyParams(lowest_rank="species", max_candidates=3)
     pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
                                    max_locations_per_query=512)
@@ -163,7 +175,7 @@ def test_sharded_matches_jax_and_single(world, nshards, paired):
 
 @pytest.mark.parametrize("rank", ["species", "genus"])
 def test_sharded_exclusion_matches_jax(world, rank):
-    single, _, reads = world
+    single, _, reads, _ = world
     classify = ClassifyParams(lowest_rank="species", max_candidates=3)
     pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
                                    max_locations_per_query=512)
@@ -189,7 +201,7 @@ def test_sharded_exclusion_matches_jax(world, rank):
 
 @pytest.mark.parametrize("paired", [False, True])
 def test_sharded_target_window_hits_matches_jax(world, paired):
-    _, _, reads = world
+    reads = world[2]
     classify = ClassifyParams(lowest_rank="sequence", max_candidates=3)
     pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
                                    max_locations_per_query=512)
@@ -206,7 +218,7 @@ def test_sharded_target_window_hits_matches_jax(world, paired):
 def test_sharded_truncates_per_shard(world):
     """At lmax 64 each shard cuts its own list: reads the single engine
     truncates keep more matches here, and the JAX sharded engine agrees."""
-    _, _, reads = world
+    reads = world[2]
     classify = ClassifyParams(lowest_rank="species", max_candidates=3)
     pipeline = QueryPipelineParams(batch_size=128, max_query_len=128,
                                    max_locations_per_query=64)
@@ -223,7 +235,7 @@ def test_sharded_truncates_per_shard(world):
 def test_sharded_dispatch_window(world):
     """materialize_many over several dispatched batches gives what each
     batch gives alone."""
-    _, _, reads = world
+    reads = world[2]
     pipeline = QueryPipelineParams(batch_size=32, max_query_len=128,
                                    max_locations_per_query=64)
     port, _, _ = engines(world, 2, ClassifyParams(), pipeline)
@@ -241,7 +253,7 @@ def test_sharded_dispatch_window(world):
 
 
 def test_sharded_engine_rejects_bad_placement(world):
-    _, shards, _ = world
+    shards = world[1]
     with pytest.raises(ValueError):
         ShardedQueryEngine(shards[2], ClassifyParams(), QueryPipelineParams(),
                            [torch.device("cpu")])
