@@ -27,14 +27,14 @@ Phases, each printed on its own line; any failure exits non-zero:
   4. the realistic paired-end world of bench.py (96 Mbp, 262,144 pairs,
      a repeat at the 254-location cap): GPU query, and the first 8,192
      pairs on the CPU give the same mapping lines.
-  5. config-2 evaluation: every read with -exclude species -precision; no
-     read is classified as its own species, and the first 16,384 lines
-     equal -device cpu's.
-  6. -hits-per-seq -tophits (16,384 reads) and -align (4,096 reads):
+  5. config-2 evaluation: the first 262,144 reads with -exclude species
+     -precision; no read is classified as its own species, and the first
+     16,384 lines equal -device cpu's.
+  6. -hits-per-seq -tophits (16,384 reads) and -align (2,048 reads):
      -device cuda writes the bytes -device cpu writes.
   7. modify: the first 14,500 genomes built natively, the last 500 added
-     by `modify` on cuda and on cpu: equal databases, equal to the
-     one-shot build's feature table; all reads queried against it.
+     by `modify` on cuda: every array equal to the one-shot native
+     build's (the source-file names aside); all reads queried against it.
   8. merge: 131,072 reads queried against the two partial databases,
      merged on cuda and on cpu: equal outputs.
   9. interactive: two lines on stdin, the second changing only -hitmin:
@@ -45,21 +45,43 @@ Phases, each printed on its own line; any failure exits non-zero:
      cuda (the shards on the card, or spread over the cards if there
      are several): both kernels ran, every mapping line equals the fused
      query's, classified fraction as in 3.
- 12. distributed: two ranks of one process group (MC_* variables, both
-     on the one card, so gloo), each through this script's rank worker
+ 12. distributed: two ranks of one process group (MC_* variables; gloo
+     where both share the one card, nccl with a card each where there
+     are two or more), each through this script's rank worker
      (`--rank-worker`): `build -num-shards 4` gives the single-process
      shards array for array; `query -mesh` on 262,144 reads gives the
      fused query's first lines on rank 0; both kernels ran in each rank.
  13. realistic_mesh: the realistic world in 2 shards with -mesh; the
      first 8,192 pairs on the CPU give the same lines; how many lines
      differ from the fused query's (per-shard truncation) is printed.
- 14. self_contained: no module of the JAX package (metacache_tpu) was
+ 14. config3: bench.py's config-3 world (200 targets x 25 Mbp in
+     4-strain groups, a 5 kbp transposon five times per genome,
+     1,048,400 pairs: 5,242 per genome of the nominal 1,048,576; ~5 GB of
+     FASTA), built in 2 shards (`build
+     -num-shards 2`, 5 Gbp) and queried fused on cuda: the database holds
+     the JAX package's 209,588,260 features, 707,655,761 locations and a
+     fused max bucket of 508; the classified fraction, over 1,048,576 as
+     bench.py counts it, is within 0.001 of its 0.9987; 128 sketch and 64
+     gather launches; the first 8,192 pairs
+     give the same lines on the CPU. Prints the build's seconds, Gbp/s
+     and peak host RSS, the query's load, upload and loop seconds (as
+     the query prints them), its peak device memory and overflow count,
+     and times the gather kernel on one real batch of it. Needs ~25 GB
+     of disk and ~15 GB of host RAM at its peak; the world is removed
+     after phase 15.
+ 15. config3_mesh: the same 2 shards with -mesh: every pair has its line,
+     both kernels ran, the first 8,192 pairs give the same lines on the
+     CPU; the lines that differ from the fused query's (per-shard
+     truncation) and the classified fraction are printed.
+ 16. self_contained: no module of the JAX package (metacache_tpu) was
      imported by this run, and the native library it loaded is the
      port's own, built from metacache_tpu_torch/native/mcio.cpp into
      build/metacache_tpu_torch/.
 Each path is driven with every kernel's launch count set to 0 just
-before it and read just after. Then the kernels' JSON line and, last,
-the device JSON line.
+before it and read just after. Each phase prints its wall seconds
+(`phase_seconds`), and `[done]` the total. Then the kernels' JSON line
+and, last, the device JSON line. The CLI runs of their own process go
+through `python -m metacache_tpu_torch`.
 
 Worlds, databases and outputs go to build/smoke/ (and the kernel
 libraries and libmcio to build/metacache_tpu_torch/) inside the checkout.
@@ -90,8 +112,20 @@ DEVICE = "cuda"
 
 C2_EXPECTED_CLASSIFIED = 0.9719     # BENCH_r05.json, JAX package
 C2_TOLERANCE = 0.001
-PIPELINE_FLAGS = ["-batch-size", "16384", "-max-query-len", "104",
+BATCH_SIZE = 16384
+PIPELINE_FLAGS = ["-batch-size", str(BATCH_SIZE), "-max-query-len", "104",
                   "-max-locations-per-query", "256"]
+#: config-3 as bench.py generates it (make_config3_world), and the JAX
+#: package's numbers for that seeded world (BENCH_r05.json, config3_*:
+#: the database's size and the classified fraction), held only while the
+#: world is generated uncut
+C3_WORLD = dict(C3_BASES=50, C3_VARIANTS=4, C3_GLEN=25_000_000,
+                C3_TP_LEN=5_000, C3_TP_COPIES=5, C3_PAIRS=1_048_576)
+C3_EXPECTED = dict(features=209_588_260, locations=707_655_761,
+                   max_bucket=508)
+C3_EXPECTED_CLASSIFIED = 0.9987
+C3_SHARDS = 2              # bench.measure_config3's -num-shards
+C3_CPU_PAIRS = 8192        # pairs compared with -device cpu
 PALLAS_SKETCH = "metacache_tpu/ops/sketch_pallas.py:165"
 PALLAS_GATHERS = {"k1": "tools/exp_pallas_gather.py:50",
                   "k2": "tools/exp_pallas_gather.py:78"}
@@ -122,8 +156,12 @@ SKETCH_OPS_PER_KMER = 6 + 1 + 8 + 1
 SKETCH_OPS_SHORT_K = 2
 
 CPU_LINES = 16384          # reads compared with -device cpu
-ALIGN_READS = 4096
+ALIGN_READS = 2048
+EVAL_READS = 262144        # reads of the evaluation query
 MODIFY_ADDED = 500         # genomes that `modify` adds
+#: arrays naming each taxon's source file and its index there, which a
+#: database built from two files cannot share with a one-shot build
+MODIFY_SOURCE_ARRAYS = ("tax_source_filename", "tax_source_index")
 MERGE_READS = 131072
 INTERACTIVE_READS = 65536
 MESH_SHARDS = 4            # config-2's -mesh and 2-rank shard count
@@ -156,7 +194,7 @@ def port_cli(args, log):
     """Run the port's CLI as a user would, in its own process."""
     t0 = time.time()
     with open(log, "w") as f:
-        r = subprocess.run([sys.executable, "-m", "metacache_tpu_torch.cli"]
+        r = subprocess.run([sys.executable, "-m", "metacache_tpu_torch"]
                            + args, cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
                            timeout=900)
     check(r.returncode == 0, f"{' '.join(args[:2])} failed, see {log}")
@@ -200,8 +238,13 @@ def driven(path, kernels, args, stdin=None):
     return out.getvalue(), err.getvalue(), wall, counts
 
 
-def check_launched(path, name, n):
+def check_launched(path, name, n, expected=None):
+    """n launches of kernel `name` on `path`: at least one, and exactly
+    `expected` where the path's batch count fixes it."""
     check(n > 0, f"{path}: the {name} kernel was never launched")
+    check(expected is None or n == expected,
+          f"{path}: the {name} kernel was launched {n} times, expected "
+          f"{expected}")
 
 
 def mapping_lines(path):
@@ -526,10 +569,10 @@ def classified_fraction(lines):
         / len(lines)
 
 
-def check_fraction(path, frac):
-    check(abs(frac - C2_EXPECTED_CLASSIFIED) <= C2_TOLERANCE,
+def check_fraction(path, frac, expected=C2_EXPECTED_CLASSIFIED):
+    check(abs(frac - expected) <= C2_TOLERANCE,
           f"{path}: classified fraction {frac:.4f} is not within "
-          f"{C2_TOLERANCE} of {C2_EXPECTED_CLASSIFIED}")
+          f"{C2_TOLERANCE} of {expected}")
 
 
 def c2_query(path, db, reads, flags, out):
@@ -601,16 +644,16 @@ def phase_realistic():
 
 
 def phase_evaluation(c2):
-    """-exclude species -precision over every read: a read's own genome is
-    genome gi of its header r<i>_NC_<gi>.1, whose species is
-    Species{gi} (bench.py); no read may be classified as it."""
+    """-exclude species -precision over the first EVAL_READS reads: a
+    read's own genome is genome gi of its header r<i>_NC_<gi>.1, whose
+    species is Species{gi} (bench.py); no read may be classified as it."""
     flags = ["-exclude", "species", "-precision", "-lowest", "species"] \
         + PIPELINE_FLAGS
     out = os.path.join(WORK, "c2_exclude_gpu.txt")
-    lines, wall, counts, _ = c2_query("evaluation", c2["db"], c2["reads"],
-                                      flags, out)
-    check(len(lines) == len(mapping_lines(c2["out"])),
-          f"evaluation: {len(lines)} mapping lines")
+    lines, wall, counts, _ = c2_query(
+        "evaluation", c2["db"], c2["reads"],
+        flags + ["-query-limit", str(EVAL_READS)], out)
+    check(len(lines) == EVAL_READS, f"evaluation: {len(lines)} mapping lines")
     own = 0
     for ln in lines:
         cols = ln.rstrip("\n").split("\t|\t")
@@ -685,9 +728,11 @@ def split_genomes(c2):
 
 
 def phase_modify(c2):
-    """Build A natively, add B with `modify` on cuda and on cpu: the two
-    databases are equal array for array; the feature table equals the
-    one-shot build's; every read is queried against the result."""
+    """Build A natively, add B with `modify` on cuda: every array of the
+    result equals the one-shot native build's (the two source-file arrays
+    excepted, which name genomes_a.fa / genomes_b.fa there), so the
+    cuda-sketched part equals what the CPU's native sketcher built; every
+    read is queried against it."""
     import numpy as np
     from metacache_tpu_torch.db.database import shard_path
     tax = os.path.join(c2["dir"], "tax")
@@ -695,35 +740,25 @@ def phase_modify(c2):
     db_a = os.path.join(WORK, "db_a")
     build_s = port_cli(["build", db_a, fa, "-taxonomy", tax],
                        os.path.join(WORK, "db_a_build.log"))
-    dbs = {}
-    for dev in ("cuda", "cpu"):
-        dbs[dev] = os.path.join(WORK, f"db_ab_{dev}")
-        shutil.copyfile(shard_path(db_a, 0), shard_path(dbs[dev], 0))
+    db_ab = os.path.join(WORK, "db_ab")
+    shutil.copyfile(shard_path(db_a, 0), shard_path(db_ab, 0))
     stdout, _, wall, counts = driven("modify", ("sketch_packed",),
-                                     ["modify", dbs["cuda"], fb])
+                                     ["modify", db_ab, fb])
     check(f"Added {MODIFY_ADDED} reference sequences." in stdout,
           f"modify: {stdout[-500:]}")
-    cpu_s = port_cli(["modify", dbs["cpu"], fb, "-device", "cpu"],
-                     os.path.join(WORK, "modify_cpu.log"))
-    got = npz_arrays(shard_path(dbs["cuda"], 0))
-    want = npz_arrays(shard_path(dbs["cpu"], 0))
-    check(sorted(got) == sorted(want), "modify: array names differ")
-    for k in want:
-        check(got[k].dtype == want[k].dtype
-              and np.array_equal(got[k], want[k]),
-              f"modify: array {k} differs between cuda and cpu")
+    got = npz_arrays(shard_path(db_ab, 0))
     oneshot = npz_arrays(shard_path(c2["db"], 0))
-    table_equal = all(np.array_equal(got[k], oneshot[k])
-                      for k in ("keys", "offsets", "loc_tgt", "loc_win",
-                                "target_taxon_node"))
-    del got, want, oneshot
+    check(sorted(got) == sorted(oneshot), "modify: array names differ")
+    differ = [k for k in oneshot if k not in MODIFY_SOURCE_ARRAYS
+              and not (got[k].dtype == oneshot[k].dtype
+                       and np.array_equal(got[k], oneshot[k]))]
+    del got, oneshot
     say("modify", build_a_seconds=f"{build_s:.2f}",
-        modify_gpu_seconds=f"{wall:.2f}", modify_cpu_seconds=f"{cpu_s:.2f}",
-        arrays_equal_cuda_cpu="yes",
-        table_equals_oneshot="yes" if table_equal else "no",
+        modify_gpu_seconds=f"{wall:.2f}",
+        arrays_equal_oneshot="yes" if not differ else ",".join(differ),
         sketch_launches=counts["sketch_packed"])
     out = os.path.join(WORK, "c2_modified_gpu.txt")
-    lines, wall, counts, _ = c2_query("modified_query", dbs["cuda"],
+    lines, wall, counts, _ = c2_query("modified_query", db_ab,
                                       c2["reads"], c2["flags"], out)
     frac = classified_fraction(lines)
     oneshot_lines = mapping_lines(c2["out"])
@@ -736,8 +771,8 @@ def phase_modify(c2):
     check(len(lines) == len(oneshot_lines),
           f"modified_query: {len(lines)} mapping lines")
     check_fraction("modified_query", frac)
-    check(table_equal, "modify: the feature table differs from the "
-                       "one-shot build's")
+    check(not differ, f"modify: arrays {differ} differ from the one-shot "
+                      "build's")
     check(same == len(oneshot_lines), "modified_query: mapping lines "
                                       "differ from the one-shot build's")
     return db_a, fb
@@ -867,6 +902,7 @@ def launch_ranks(tag, args):
     launch), each through this script's rank worker. Both are killed and
     the phase fails past RANK_TIMEOUT seconds or on a non-zero exit.
     Returns (each rank's kernel launch counts, wall seconds, backend)."""
+    import torch
     port = free_port()
     procs, logs = [], []
     t0 = time.time()
@@ -904,29 +940,51 @@ def launch_ranks(tag, args):
     with open(os.path.join(WORK, f"{tag}_rank0.log")) as f:
         backend = [ln.split("backend ")[1].split()[0] for ln in f
                    if ln.startswith("[distributed]")]
-    check(backend == ["gloo"], f"{tag}: backend {backend}, expected gloo "
-                               "(two ranks share one card)")
+    # nccl with a card per rank, gloo where the two ranks share one card
+    want = "nccl" if DEVICE == "cuda" and torch.cuda.device_count() >= 2 \
+        else "gloo"
+    check(backend == [want], f"{tag}: backend {backend}, expected {want}")
     return counts, wall, backend[0]
 
 
 def rank_worker(counts_path, args):
-    """One rank of launch_ranks: the CLI in this process, then its
-    kernel launch counts to counts_path."""
+    """The CLI in this process (one rank of launch_ranks, or a run of its
+    own in worker_cli), then its kernel launch counts and its peak host
+    RSS in MB (utils/memory.py) to counts_path."""
     sys.path.insert(0, REPO)
     from metacache_tpu_torch import cli
+    from metacache_tpu_torch.utils.memory import vm_peak_mb
     mods = kernel_modules()
     for m in mods.values():
         m.launches = 0
     rc = cli.main(args)
     with open(counts_path, "w") as f:
-        json.dump({name: m.launches for name, m in mods.items()}, f)
+        json.dump(dict({name: m.launches for name, m in mods.items()},
+                       peak_rss_mb=vm_peak_mb()), f)
     return rc
 
 
+def worker_cli(tag, args):
+    """The port's CLI in a process of its own (this script's rank worker,
+    no process group) -> (wall seconds, its launch counts and peak host
+    RSS)."""
+    path = os.path.join(WORK, f"{tag}.json")
+    t0 = time.time()
+    with open(os.path.join(WORK, f"{tag}.log"), "w") as log:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--rank-worker", path] + args
+                           + ["-device", DEVICE], cwd=REPO, stdout=log,
+                           stderr=subprocess.STDOUT, timeout=900)
+    check(r.returncode == 0, f"{' '.join(args[:2])} failed, see {tag}.log")
+    with open(path) as f:
+        return time.time() - t0, json.load(f)
+
+
 def phase_distributed(c2, mesh_db):
-    """Two ranks on the one card over gloo: (a) build the MESH_SHARDS
-    shards, rank r writing s % 2 == r, equal to the single-process
-    build's; (b) query -mesh, rank 0's lines equal the fused query's."""
+    """Two ranks, over gloo on one card (nccl with a card each where there
+    are two or more): (a) build the MESH_SHARDS shards, rank r writing
+    s % 2 == r, equal to the single-process build's; (b) query -mesh,
+    rank 0's lines equal the fused query's."""
     import numpy as np
     from metacache_tpu_torch.db.database import shard_path
     db = os.path.join(c2["dir"], "dist_db")
@@ -992,6 +1050,208 @@ def phase_realistic_mesh(big):
                 "realistic_mesh")
 
 
+@contextlib.contextmanager
+def spying(module, name, spy):
+    """module.name replaced by spy(module.name) for the duration: the
+    port's own function still runs, the spy only watches it."""
+    orig = getattr(module, name)
+    setattr(module, name, spy(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def c3_pairs():
+    """The pairs bench.make_config3_world writes: C3_PAIRS // genomes
+    for each genome (1,048,400 of the nominal 1,048,576 uncut)."""
+    import bench
+    genomes = bench.C3_BASES * bench.C3_VARIANTS
+    return bench.C3_PAIRS // genomes * genomes
+
+
+def c3_world_is_full():
+    """True when bench.py's config-3 world is generated as bench.py
+    defines it, the world the JAX package's numbers belong to."""
+    import bench
+    return all(getattr(bench, k) == v for k, v in C3_WORLD.items())
+
+
+def setup_seconds(stderr, what):
+    """The seconds of a set-up step as the query prints them on stderr
+    (`# <what> seconds: <s>`, modes/query.py's setup_span)."""
+    tag = f"# {what} seconds: "
+    spans = [float(ln[len(tag):]) for ln in stderr.splitlines()
+             if ln.startswith(tag)]
+    check(len(spans) == 1, f"the query printed {len(spans)} '{tag}' lines")
+    return spans[0]
+
+
+def database_size(db):
+    """features, locations and the largest bucket of a loaded database."""
+    features = db.features
+    return dict(features=features.num_keys,
+                locations=features.num_locations,
+                max_bucket=int(features.bucket_sizes().max()))
+
+
+def overflow_count(stderr):
+    """Reads whose match list was cut at -max-locations-per-query, from
+    the query's stderr warning (0 without one)."""
+    for ln in stderr.splitlines():
+        if ln.startswith("WARNING: match-list overflow on "):
+            return int(ln.split()[4])
+    return 0
+
+
+def phase_config3():
+    """bench.py's config-3 world (200 targets x 25 Mbp in 4-strain
+    groups, a 5 kbp transposon 5 times per genome, 1,048,400 pairs),
+    built in C3_SHARDS shards by the port's CLI and queried fused on the
+    card. Checks the database's size and the classified fraction against
+    the JAX package's numbers for the same seeded world (the fraction as
+    bench.measure_config3 computes it: classified pairs over the nominal
+    C3_PAIRS), that every pair has its line, that both kernels
+    ran once per batch (the sketch per mate), and the first C3_CPU_PAIRS
+    pairs against -device cpu. Times the gather kernel on one real batch
+    of this query."""
+    import bench
+    import torch
+    from metacache_tpu_torch.modes import query as query_mode
+    from metacache_tpu_torch.ops import lookup
+    bench.C3 = os.path.join(WORK, "c3")
+    t0 = time.time()
+    bench.make_config3_world()
+    say("config3", world_seconds=f"{time.time() - t0:.1f}")
+    c3 = bench.C3
+    db = os.path.join(c3, "db")
+    gbp = bench.C3_BASES * bench.C3_VARIANTS * bench.C3_GLEN / 1e9
+    build_s, built = worker_cli("c3_build", [
+        "build", db, os.path.join(c3, "genomes.fa"), "-taxonomy",
+        os.path.join(c3, "tax"), "-num-shards", str(C3_SHARDS)])
+    rss = built["peak_rss_mb"]
+    say("config3", gbp=gbp, build_seconds=f"{build_s:.2f}",
+        build_gbp_per_s=f"{gbp / build_s:.5f}",
+        build_peak_rss_mb="not_measured" if rss is None else f"{rss:.1f}",
+        disk_free_gb=f"{shutil.disk_usage(WORK).free / 1e9:.1f}")
+
+    reads = [os.path.join(c3, "reads_1.fa"), os.path.join(c3, "reads_2.fa")]
+    flags = ["-pairfiles", "-lowest", "species"] + PIPELINE_FLAGS
+    out = os.path.join(WORK, "c3_gpu.txt")
+    batch, loaded = {}, []
+
+    def keep(fn):        # the database the fused query loaded
+        def load(*args):
+            loaded.append(fn(*args))
+            return loaded[-1]
+        return load
+
+    def capture(fn):     # the first batch's gather inputs
+        def gather(table, idx, n_valid, pad):
+            if not batch:
+                batch.update(table=table, idx=idx.clone(),
+                             n_valid=n_valid.clone(), pad=pad)
+            return fn(table, idx, n_valid, pad)
+        return gather
+
+    torch.cuda.reset_peak_memory_stats()
+    with spying(query_mode, "load_all_shards", keep), \
+            spying(lookup, "gather_rows", capture):
+        _, err, wall, counts = driven(
+            "config3", (), ["query", db] + reads + flags + ["-out", out])
+    check(len(loaded) == 1, f"config-3: {len(loaded)} databases loaded")
+    size = database_size(loaded.pop())
+    peak = torch.cuda.max_memory_allocated()
+    lines = mapping_lines(out)
+    n = len(lines)
+    frac = classified_fraction(lines)
+    frac_bench = frac * n / bench.C3_PAIRS
+    qs = classify_seconds(out)
+    batches = -(-c3_pairs() // BATCH_SIZE)
+    say("config3", pairs=n, **size, query_wall_seconds=f"{wall:.2f}",
+        load_all_shards_seconds=setup_seconds(err, "database load"),
+        table_upload_seconds=setup_seconds(err, "table upload"),
+        classify_seconds=f"{qs:.3f}", pairs_per_s_classify=f"{n / qs:.1f}",
+        pairs_per_s_wall=f"{n / wall:.1f}", classified_frac=f"{frac:.4f}",
+        classified_frac_of_c3_pairs=f"{frac_bench:.4f}",
+        overflow_reads=overflow_count(err), peak_device_bytes=peak,
+        sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    check(n == c3_pairs(), f"config-3: {n} mapping lines, expected "
+                           f"{c3_pairs()}")
+    for name, want in (("sketch_packed", 2 * batches),
+                       ("gather_rows", batches)):
+        LAUNCHES[name] += counts[name]
+        check_launched("config3", name, counts[name], want)
+    if c3_world_is_full():
+        check(size == C3_EXPECTED, f"config-3: database {size}, expected "
+                                   f"{C3_EXPECTED}")
+        check_fraction("config-3", frac_bench, C3_EXPECTED_CLASSIFIED)
+    else:
+        say("config3", world="cut", unchecked="size,classified_frac")
+    compare_cpu(db, reads, flags, min(C3_CPU_PAIRS, n), out, "config3")
+    check(bool(batch), "config-3: the lookup gathered nothing")
+    gather = gather_at(batch)
+    batch.clear()
+    return dict(db=db, dir=c3, reads=reads, flags=flags, out=out,
+                gather=gather)
+
+
+def gather_at(batch):
+    """The gather kernel timed on one real batch of the config-3 query:
+    its location table, slot indices and valid counts, bit-equal to the
+    plain version. table[idx] reads every slot, so its idx sends the
+    slots past n_valid (which the lookup leaves unclamped) to word 0."""
+    import torch
+    from metacache_tpu_torch.ops import gather_cuda
+    from metacache_tpu_torch.ops.gather import gather_rows_reference
+    table, idx, n_valid, pad = (batch[k] for k in ("table", "idx",
+                                                   "n_valid", "pad"))
+    valid = torch.arange(idx.shape[1], device=idx.device)[None, :] \
+        < n_valid[:, None]
+    got = gather_cuda.gather_rows(table, idx, n_valid, pad)
+    err = int((got != gather_rows_reference(table, idx, n_valid,
+                                            pad)).sum())
+    check(err == 0, f"gather kernel differs from plain in {err} elements "
+                    "(config-3 batch)")
+    safe = torch.where(valid, idx, 0)
+    name = f"config3_N{table.numel()}_B{idx.shape[0]}xL{idx.shape[1]}"
+    say(f"gather_{name}", valid_share=f"{float(valid.float().mean()):.4f}")
+    res = timed(f"gather_{name}",
+                lambda: gather_cuda.gather_rows(table, idx, n_valid, pad),
+                lambda: gather_rows_reference(table, idx, n_valid, pad),
+                lambda: table[safe],
+                *gather_bound(table, idx[valid], n_valid, got))
+    return dict(res, err=err, shape=name)
+
+
+def phase_config3_mesh(c3):
+    """The config-3 shards queried with -mesh on the card(s): every pair
+    has its line, both kernels ran, and the first C3_CPU_PAIRS pairs
+    equal -device cpu's -mesh run. Each shard cuts its own match list,
+    so lines may differ from the fused query's on the transposon reads:
+    that count and the classified fraction are printed, not checked.
+    The config-3 world and databases are removed afterwards."""
+    out = os.path.join(WORK, "c3_mesh_gpu.txt")
+    lines, wall, counts, peak, where = mesh_query("config3_mesh", c3["db"],
+                                                  c3, out)
+    fused = mapping_lines(c3["out"])
+    qs = classify_seconds(out)
+    say("config3_mesh", shards=C3_SHARDS, pairs=len(lines),
+        query_wall_seconds=f"{wall:.2f}", classify_seconds=f"{qs:.3f}",
+        pairs_per_s_classify=f"{len(lines) / qs:.1f}",
+        classified_frac=f"{classified_fraction(lines):.4f}",
+        lines_differing_from_fused=sum(a != b for a, b in zip(lines, fused)),
+        peak_device_bytes=peak, placement=where,
+        sketch_launches=counts["sketch_packed"],
+        gather_launches=counts["gather_rows"])
+    check(len(lines) == c3_pairs(),
+          f"config3_mesh: {len(lines)} mapping lines")
+    compare_cpu(c3["db"], c3["reads"], c3["flags"] + ["-mesh"],
+                min(C3_CPU_PAIRS, len(lines)), out, "config3_mesh")
+    shutil.rmtree(c3["dir"], ignore_errors=True)
+
+
 def phase_self_contained():
     """No module of the JAX package in this process, and the native
     library it loaded is the port's own build."""
@@ -1011,6 +1271,14 @@ def phase_self_contained():
         libmcio=os.path.relpath(path, REPO))
 
 
+def timed_phase(name, phase, *args):
+    """One phase, its wall seconds printed on a line of its own."""
+    t0 = time.time()
+    res = phase(*args)
+    say(name, phase_seconds=f"{time.time() - t0:.1f}")
+    return res
+
+
 def use_repo_tests_package():
     """bench.py's world generators import `tests.util_mockdata`. Bind the
     name `tests` to this checkout's test directory, even where an
@@ -1024,6 +1292,7 @@ def use_repo_tests_package():
 def kernels_json(sketch, gather):
     cell = sketch["cells"]
     c2 = gather["config2"]
+    c3 = gather["config3"]
     rows = [dict(
         name="sketch_packed", route="cuda",
         source="metacache_tpu_torch/csrc/sketch.cu", replaces=PALLAS_SKETCH,
@@ -1031,8 +1300,9 @@ def kernels_json(sketch, gather):
         max_abs_err=max(r["err"] for r in sketch.values()),
         shape=cell["shape"], **{k: cell[k] for k in TIMES})]
     # one kernel replaces both probes (k2's row-and-lane layout has no
-    # counterpart on Hopper); its times at config-2's lookup shape, and at
-    # k1's own shape under k1_*
+    # counterpart on Hopper); its times at config-2's lookup shape, at
+    # k1's own shape under k1_*, and on a real config-3 batch under
+    # config3_*
     for probe, where in PALLAS_GATHERS.items():
         rows.append(dict(
             name="gather_rows", route="cuda",
@@ -1040,7 +1310,9 @@ def kernels_json(sketch, gather):
             launches=LAUNCHES["gather_rows"],
             max_abs_err=max(r["err"] for r in gather.values()),
             shape=c2["shape"], probe=probe, **{k: c2[k] for k in TIMES},
-            **{f"k1_{k}": gather["k1"][k] for k in TIMES}))
+            **{f"k1_{k}": gather["k1"][k] for k in TIMES},
+            config3_shape=c3["shape"],
+            **{f"config3_{k}": c3[k] for k in TIMES}))
     return {"kernels": rows}
 
 
@@ -1099,20 +1371,23 @@ def main() -> int:
         t0 = time.time()
         build_kernels()
         dev = torch.device("cuda")
-        sketch = phase_kernel(dev)
-        gather = phase_gather(dev)
-        c2 = phase_config2()
-        big = phase_realistic()
-        phase_evaluation(c2)
-        phase_options(c2)
-        db_a, fb = phase_modify(c2)
-        phase_merge(c2, db_a, fb)
-        phase_interactive(c2)
-        phase_info(c2)
-        mesh_db = phase_mesh(c2)
-        phase_distributed(c2, mesh_db)
-        phase_realistic_mesh(big)
-        phase_self_contained()
+        sketch = timed_phase("kernel", phase_kernel, dev)
+        gather = timed_phase("gather", phase_gather, dev)
+        c2 = timed_phase("config2", phase_config2)
+        big = timed_phase("realistic", phase_realistic)
+        timed_phase("evaluation", phase_evaluation, c2)
+        timed_phase("options", phase_options, c2)
+        db_a, fb = timed_phase("modify", phase_modify, c2)
+        timed_phase("merge", phase_merge, c2, db_a, fb)
+        timed_phase("interactive", phase_interactive, c2)
+        timed_phase("info", phase_info, c2)
+        mesh_db = timed_phase("mesh", phase_mesh, c2)
+        timed_phase("distributed", phase_distributed, c2, mesh_db)
+        timed_phase("realistic_mesh", phase_realistic_mesh, big)
+        c3 = timed_phase("config3", phase_config3)
+        gather["config3"] = c3["gather"]
+        timed_phase("config3_mesh", phase_config3_mesh, c3)
+        timed_phase("self_contained", phase_self_contained)
         say("done", seconds=f"{time.time() - t0:.1f}")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

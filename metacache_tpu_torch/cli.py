@@ -1,6 +1,7 @@
 """Command line entry of the port: mode dispatch (src/main.cpp:41-106).
 
-Usage: python -m metacache_tpu_torch.cli <mode> ... [-device cuda|cpu]
+Usage: python -m metacache_tpu_torch <mode> ... [-device cuda|cpu]
+(or python -m metacache_tpu_torch.cli)
 
 `build`, `modify`, `query`, `info` and `merge` run their device work on
 -device (default cuda); `help` and `annotate` are host-only.
@@ -26,7 +27,7 @@ def main(argv=None) -> int:
     if not args.positionals:
         print("metacache_tpu_torch — metagenomic classifier (PyTorch/CUDA)\n"
               f"available modes: {', '.join(MODES)}\n"
-              "usage: python -m metacache_tpu_torch.cli <mode> ... "
+              "usage: python -m metacache_tpu_torch <mode> ... "
               "[-device cuda|cpu]", file=sys.stderr)
         return 1
     from .parallel.distributed import maybe_initialize

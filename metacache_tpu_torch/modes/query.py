@@ -12,10 +12,13 @@ command line). The options and output lines are the JAX package's.
 Without -mesh the shards are fused into one table on one device. With
 -mesh each shard keeps its own tables (parallel/sharding.py): shard s on
 card s % device count, or, under the MC_* launch, the shards s % P == r
-on rank r's card; only rank 0 writes results.
+on rank r's card; only rank 0 writes results. Either way the load of
+the shards and the upload of their device tables print their seconds on
+stderr (setup_span).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue
@@ -42,6 +45,19 @@ from ..utils import ArgsParser, Timer
 
 #: batches per dispatch window: window k is formatted while k+1 computes
 WINDOW = 8
+
+
+@contextlib.contextmanager
+def setup_span(what: str, device: torch.device):
+    """A set-up step of the query, timed with the device work it queued
+    and printed on stderr as `# <what> seconds: <s>`."""
+    timer = Timer()
+    timer.start()
+    yield
+    if device.type == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    print(f"# {what} seconds: {timer.seconds():.3f}", file=sys.stderr)
 
 
 @dataclasses.dataclass
@@ -685,7 +701,8 @@ def main_mode_query(args: ArgsParser) -> int:
     if args.contains("mesh"):
         engine, db = _mesh_engine(dbname, opt, device)
     if engine is None:
-        db = load_all_shards(dbname)
+        with setup_span("database load", device):
+            db = load_all_shards(dbname)
         _apply_database_tuning(opt, db)
         _adapt_options_to_database(opt, db)
     if not distributed.is_writer():
@@ -700,8 +717,10 @@ def main_mode_query(args: ArgsParser) -> int:
         print_content_properties(db)
     # ONE engine (the database on the device) serves every output group
     if engine is None:
-        engine = QueryEngine(db, opt.classify, opt.pipeline, device=device,
-                             target_window_k=_window_k(opt))
+        with setup_span("table upload", device):
+            engine = QueryEngine(db, opt.classify, opt.pipeline,
+                                 device=device,
+                                 target_window_k=_window_k(opt))
 
     if opt.output.split_files and opt.output.query_mappings_file:
         # one output (and statistics) per input file / file pair
@@ -746,7 +765,8 @@ def _mesh_engine(dbname: str, opt: QueryModeOptions, device: torch.device):
               f"fused single-device query", file=sys.stderr)
         return None, None
     mine = distributed.local_shard_ids(n)
-    shards = [load_shard(dbname, s) for s in mine]
+    with setup_span("database load", device):
+        shards = [load_shard(dbname, s) for s in mine]
     for sh in shards:   # per-rank tuning (mode_query.cpp:354-388)
         _apply_database_tuning(opt, sh)
     _adapt_options_to_database(opt, shards[0])
@@ -754,8 +774,10 @@ def _mesh_engine(dbname: str, opt: QueryModeOptions, device: torch.device):
     print("-mesh: " + ", ".join(f"shard {s} on {d}"
                                 for s, d in zip(mine, devices)),
           file=sys.stderr)
-    return ShardedQueryEngine(shards, opt.classify, opt.pipeline, devices,
-                              target_window_k=_window_k(opt)), shards[0]
+    with setup_span("table upload", device):
+        engine = ShardedQueryEngine(shards, opt.classify, opt.pipeline,
+                                    devices, target_window_k=_window_k(opt))
+    return engine, shards[0]
 
 
 def run_interactive_query_mode(dbname: str, init_args: ArgsParser,

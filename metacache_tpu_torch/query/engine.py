@@ -27,7 +27,7 @@ previous one.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ import torch
 from ..config import ClassifyParams, QueryPipelineParams
 from ..db.database import Database
 from ..db.taxonomy import Rank, rank_from_name
+from ..device import resolve_device
 from ..ops import encode
 from ..ops.candidates import generate_candidates
 from ..ops.classify_op import classify_lca
@@ -44,13 +45,28 @@ from ..ops.sketch_cuda import sketch_packed
 _CHUNK = 1 << 24
 
 
+def _chunk_int64(arr: np.ndarray, o: int, device: torch.device
+                 ) -> torch.Tensor:
+    """arr[o:o + _CHUNK] (a host array of integers, possibly a read-only
+    memmap) -> int64 tensor on `device`. The chunk crosses to the device
+    in its own width and is widened there: unsigned words go as the signed
+    words of the same bits and are masked back."""
+    part = np.array(arr[o:o + _CHUNK])
+    mask = None
+    if part.dtype.kind == "u":
+        mask = (1 << (8 * part.dtype.itemsize)) - 1
+        part = part.view(f"i{part.dtype.itemsize}")
+    out = torch.from_numpy(part).to(device).long()
+    return out if mask is None else out & mask
+
+
 def _to_device_int64(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array (possibly a read-only memmap) -> int64 tensor on
     `device`, copied in chunks so no full-size int64 host copy exists."""
     out = torch.empty(len(arr), dtype=torch.int64, device=device)
     for o in range(0, len(arr), _CHUNK):
-        part = np.array(arr[o:o + _CHUNK], dtype=np.int64)
-        out[o:o + len(part)] = torch.from_numpy(part)
+        part = _chunk_int64(arr, o, device)
+        out[o:o + len(part)] = part
     return out
 
 
@@ -81,9 +97,9 @@ def feature_tables(db: Database, device: torch.device
     keys, offsets, loc_tgt, loc_win = db.features.device_arrays()
     locations = torch.empty(len(loc_tgt), dtype=torch.int64, device=device)
     for o in range(0, len(loc_tgt), _CHUNK):
-        t = np.array(loc_tgt[o:o + _CHUNK], dtype=np.int64)
-        w = np.array(loc_win[o:o + _CHUNK], dtype=np.int64)
-        locations[o:o + len(t)] = torch.from_numpy((t << LOC_SHIFT) | w)
+        t = _chunk_int64(loc_tgt, o, device)
+        locations[o:o + len(t)] = (t << LOC_SHIFT) | _chunk_int64(
+            loc_win, o, device)
     return {"keys": _to_device_int64(keys, device),
             "offsets": _to_device_int64(offsets, device),
             "locations": locations}
@@ -352,15 +368,17 @@ class QueryEngine(EngineBase):
 
     def __init__(self, db: Database, classify: ClassifyParams,
                  pipeline: QueryPipelineParams = QueryPipelineParams(),
-                 device: torch.device = torch.device("cpu"),
+                 device: Optional[torch.device] = None,
                  target_window_k: int = 0,
                  tables: Dict[str, torch.Tensor] = None):
-        """`tables`: device tables of this database for this lowest rank,
-        already uploaded (tables_from_database), to share them."""
+        """`device`: where the tables live and the batches run; the card
+        unless the CPU is given (raises when there is no card). `tables`:
+        device tables of this database for this lowest rank, already
+        uploaded (tables_from_database), to share them."""
         super().__init__(db, classify, pipeline, target_window_k)
-        self.device = device
+        self.device = resolve_device("cuda") if device is None else device
         self.tables = tables if tables is not None else \
-            tables_from_database(db, device, self.lowest_rank)
+            tables_from_database(db, self.device, self.lowest_rank)
 
     def set_exclusion(self, rank_code: int):
         """Enable clade exclusion on `rank_code`: per-read exclusion groups

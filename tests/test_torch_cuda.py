@@ -271,6 +271,26 @@ def test_engine_cuda_matches_cpu(dev, tmp_path, options):
     assert os.path.exists(gather_cuda.LIBRARY.path())
 
 
+def test_engine_defaults_to_the_card(dev, tmp_path):
+    """QueryEngine without a device puts its tables on the card and gives
+    the results of the same engine on the CPU."""
+    from metacache_tpu_torch.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu_torch.query.engine import QueryEngine
+
+    (db,), (c1, l1, c2, l2), _ = engine_world(tmp_path, 1)
+    pipeline = QueryPipelineParams(batch_size=256, max_query_len=128,
+                                   max_locations_per_query=64)
+    classify = ClassifyParams(max_candidates=3)
+    eng = QueryEngine(db, classify, pipeline)
+    assert eng.device.type == "cuda"
+    assert all(t.is_cuda for t in eng.tables.values())
+    cpu = QueryEngine(db, classify, pipeline, device=torch.device("cpu"))
+    got, want = (e.classify_batch(c1, l1, c2, l2, 200) for e in (eng, cpu))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+
+
 def test_sharded_engine_cuda_matches_cpu(dev, tmp_path):
     """Two shards on one card (the one-card -mesh placement), with window
     hit counts, against the same two shards on the CPU; both kernels

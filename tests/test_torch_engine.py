@@ -134,7 +134,9 @@ def test_engine_with_exclusion_matches_jax(world, rank, lmax):
                                       np.asarray(getattr(want, f))[:n],
                                       err_msg=f)
     # exclusion changed results against a run without it
-    plain = teng.QueryEngine(db, classify, pipeline).classify_batch(*inputs, n)
+    plain = teng.QueryEngine(db, classify, pipeline,
+                           device=torch.device("cpu")).classify_batch(
+        *inputs, n)
     assert (plain.best[:n] != got.best[:n]).sum() > 10
 
 
@@ -149,7 +151,8 @@ def test_engine_target_window_hits_matches_jax(world, paired):
                                           max_candidates=3)
     jpipeline, pipeline = params(batch_size=128, max_query_len=128,
                                  max_locations_per_query=512)
-    eng = teng.QueryEngine(db, classify, pipeline, target_window_k=16)
+    eng = teng.QueryEngine(db, classify, pipeline, device=torch.device("cpu"),
+                           target_window_k=16)
     inputs = batch(reads, eng, paired)
     n = len(reads)
     want = JaxEngine(jdb, jclassify, jpipeline,
@@ -170,7 +173,8 @@ def test_dispatch_window_equals_single_batches(world):
     _, db, reads = world
     pipeline = tconfig.QueryPipelineParams(batch_size=32, max_query_len=128,
                                            max_locations_per_query=64)
-    eng = teng.QueryEngine(db, tconfig.ClassifyParams(), pipeline)
+    eng = teng.QueryEngine(db, tconfig.ClassifyParams(), pipeline,
+                           device=torch.device("cpu"))
     from metacache_tpu_torch.ops.encode import np_pack_codes
     packed = []
     for o in range(0, 96, 32):

@@ -231,7 +231,8 @@ def test_database_from_arrays_serves_the_engine(world, paired):
     pw = dict(batch_size=64, max_query_len=128, max_locations_per_query=256)
     classify, pipeline = tconfig.ClassifyParams(**kw), \
         tconfig.QueryPipelineParams(**pw)
-    engines = [QueryEngine(db, classify, pipeline)
+    engines = [QueryEngine(db, classify, pipeline,
+                           device=torch.device("cpu"))
                for db in (port_db(jdb), Database.load(base, 0))]
     c1, l1, c2, l2 = engines[0].make_host_buffers()
     for i, (a, b) in enumerate(reads):

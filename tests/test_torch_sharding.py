@@ -144,6 +144,7 @@ def engines(world, nshards, classify, pipeline, twk=0):
                         **dataclasses.asdict(pipeline)),
                     make_mesh(jax.devices()[:nshards]), target_window_k=twk)
     return port, jx, QueryEngine(single, classify, pipeline,
+                                 device=torch.device("cpu"),
                                  target_window_k=twk)
 
 
