@@ -19,9 +19,13 @@ Phases, each printed on its own line; any failure exits non-zero:
      counted from the inputs) and the share of it.
   3. config-2 (BASELINE config-2, the RefSeq-viral analogue of bench.py:
      15,000 genomes, 1,048,576 single-end 100 bp reads): the port's CLI
-     builds the database, then queries every read on -device cuda. Checks
-     that both kernels ran on that path and that the classified fraction
-     is within 0.001 of the 0.9719 the JAX package recorded on the same
+     builds the database from the genomes and two bad files beside them
+     (a header-only NCBI assembly_summary.txt and a truncated FASTQ):
+     both are reported on `FAIL:` lines and left out, and the database is
+     the JAX package's (77,048,814 features, 86,957,916 locations, max
+     bucket 7). Then every read is queried on -device cuda. Checks that
+     both kernels ran on that path and that the classified fraction is
+     within 0.001 of the 0.9719 the JAX package recorded on the same
      seeded world; the first 16,384 reads again on -device cpu give the
      same mapping lines.
   4. the realistic paired-end world of bench.py (96 Mbp, 262,144 pairs,
@@ -30,10 +34,13 @@ Phases, each printed on its own line; any failure exits non-zero:
   5. config-2 evaluation: the first 262,144 reads with -exclude species
      -precision; no read is classified as its own species, and the first
      16,384 lines equal -device cpu's.
-  6. -hits-per-seq -tophits (16,384 reads) and -align (2,048 reads):
-     -device cuda writes the bytes -device cpu writes.
+  6. -hits-per-seq -tophits (16,384 reads), -align (2,048 reads) and the
+     evaluation summaries (16,384 reads with -abundances -abundance-per
+     species -precision -taxon-coverage -hits-per-seq): -device cuda
+     writes the bytes -device cpu writes, summary blocks included.
   7. modify: the first 14,500 genomes built natively, the last 500 added
-     by `modify` on cuda: every array equal to the one-shot native
+     by `modify` on cuda beside a malformed FASTQ (reported on a `FAIL:`
+     line on stderr, left out): every array equal to the one-shot native
      build's (the source-file names aside); all reads queried against it.
   8. merge: 131,072 reads queried against the two partial databases,
      merged on cuda and on cpu: equal outputs.
@@ -112,6 +119,21 @@ DEVICE = "cuda"
 
 C2_EXPECTED_CLASSIFIED = 0.9719     # BENCH_r05.json, JAX package
 C2_TOLERANCE = 0.001
+#: config-2 as bench.py generates it, and the JAX package's database of
+#: it (BENCH_r05.json, config2_*), held only while the world is uncut
+C2_WORLD = dict(C2_GENOMES=15_000, C2_READS=1_048_576)
+C2_EXPECTED = dict(features=77_048_814, locations=86_957_916, max_bucket=7)
+#: beside config-2's genomes: a header-only NCBI assembly_summary.txt (no
+#: known sequence format) and a FASTQ cut inside its third record (no
+#: quality header); `build` reports both and leaves them out
+ASSEMBLY_SUMMARY = ("# assembly_accession\tbioproject\tbiosample\t"
+                    "wgs_master\trefseq_category\ttaxid\tspecies_taxid\t"
+                    "organism_name\n")
+TRUNCATED_FASTQ = ("@NC_900000.1 cut\nACGTACGTAC\n+\nIIIIIIIIII\n"
+                   "@NC_900001.1 cut\nCCGGTTAACC\n+\nIIIIIIIIII\n"
+                   "@NC_900002.1 cut\nGGTTAACCGG\n")
+#: a file `modify` reports and leaves out: its first record is malformed
+MALFORMED_FASTQ = "@NC_900003.1 malformed\nACGTACGTAC\nACGTACGTAC\n"
 BATCH_SIZE = 16384
 PIPELINE_FLAGS = ["-batch-size", str(BATCH_SIZE), "-max-query-len", "104",
                   "-max-locations-per-query", "256"]
@@ -130,7 +152,7 @@ PALLAS_SKETCH = "metacache_tpu/ops/sketch_pallas.py:165"
 PALLAS_GATHERS = {"k1": "tools/exp_pallas_gather.py:50",
                   "k2": "tools/exp_pallas_gather.py:78"}
 #: config-2's lookup: its location table and the query's [B, lmax] slots
-C2_LOCATIONS = 86_957_916
+C2_LOCATIONS = C2_EXPECTED["locations"]
 C2_SLOTS = (16384, 256)
 C2_MAX_VALID = 26           # rows hold 0..26 matches: 5.1% of the slots
 #: the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -156,6 +178,16 @@ SKETCH_OPS_PER_KMER = 6 + 1 + 8 + 1
 SKETCH_OPS_SHORT_K = 2
 
 CPU_LINES = 16384          # reads compared with -device cpu
+#: every evaluation summary at once (classified down to the sequence, so
+#: the hits-per-target list is filled), and the heading of each block
+SUMMARY_FLAGS = ["-abundances", "-abundance-per", "species", "-precision",
+                 "-taxon-coverage", "-hits-per-seq"]
+SUMMARY_BLOCKS = ("# --- list of hits for each reference sequence ---",
+                  "# query summary: number of queries mapped per taxon",
+                  "# estimated abundance (number of queries) per species",
+                  "# precision (correctly classified / classified)",
+                  "# sensitivity (correctly classified / all)",
+                  "# false positives (hit on taxa not covered in DB):")
 ALIGN_READS = 2048
 EVAL_READS = 262144        # reads of the evaluation query
 MODIFY_ADDED = 500         # genomes that `modify` adds
@@ -586,17 +618,51 @@ def c2_query(path, db, reads, flags, out):
     return mapping_lines(out), wall, counts, torch.cuda.max_memory_allocated()
 
 
+def fail_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith("FAIL: ")]
+
+
+def bad_inputs(c2):
+    """The two bad files beside config-2's genomes, and the FAIL lines
+    `build` must print for them."""
+    summary = os.path.join(c2, "assembly_summary.txt")
+    cut = os.path.join(c2, "truncated.fq")
+    for path, text in ((summary, ASSEMBLY_SUMMARY), (cut, TRUNCATED_FASTQ)):
+        with open(path, "w") as f:
+            f.write(text)
+    return [summary, cut], [
+        f"FAIL: {summary}: file format not recognized: {summary}",
+        f"FAIL: {cut}: malformed fastq file - quality header: "]
+
+
 def phase_config2():
+    """Config-2 built from its genomes and two bad files beside them
+    (listed as files, so reads.fa and tax/ stay out): both reported, the
+    database the JAX package's; then every read queried."""
     import bench
+    from metacache_tpu_torch.modes.query import load_shard
     bench.C2 = os.path.join(WORK, "c2")
     t0 = time.time()
     bench.make_config2_world()
     say("config2", world_seconds=f"{time.time() - t0:.1f}")
     c2 = bench.C2
     db = os.path.join(c2, "db")
-    build_s = port_cli(["build", db, os.path.join(c2, "genomes.fa"),
-                        "-taxonomy", os.path.join(c2, "tax")],
-                       os.path.join(WORK, "c2_build.log"))
+    bad, want_fails = bad_inputs(c2)
+    log = os.path.join(WORK, "c2_build.log")
+    build_s = port_cli(["build", db, os.path.join(c2, "genomes.fa")] + bad
+                       + ["-taxonomy", os.path.join(c2, "tax")], log)
+    with open(log) as f:
+        fails = fail_lines(f.read())
+    check(fails == want_fails, f"config-2 build: FAIL lines {fails}")
+    shard = load_shard(db, 0)
+    size = database_size(shard)
+    targets = len(shard.target_taxon_node)
+    del shard
+    say("config2", fail_lines=len(fails), targets=targets, **size)
+    check(targets == bench.C2_GENOMES, f"config-2: {targets} targets")
+    if all(getattr(bench, k) == v for k, v in C2_WORLD.items()):
+        check(size == C2_EXPECTED, f"config-2: database {size}, the JAX "
+                                   f"package's is {C2_EXPECTED}")
     reads = [os.path.join(c2, "reads.fa")]
     flags = ["-lowest", "species"] + PIPELINE_FLAGS
     out = os.path.join(WORK, "c2_gpu.txt")
@@ -704,6 +770,15 @@ def phase_options(c2):
     aln = gpu_equals_cpu("align", c2, ["-align"] + PIPELINE_FLAGS,
                          ALIGN_READS)
     check(any("aligned to" in ln for ln in aln), "align: no alignment")
+    # the evaluation summaries: hits per target, per-rank precision and
+    # taxon coverage, both abundance tables
+    summ = gpu_equals_cpu("summaries", c2, SUMMARY_FLAGS + PIPELINE_FLAGS,
+                          CPU_LINES)
+    for block in SUMMARY_BLOCKS:
+        check(any(ln.startswith(block) for ln in summ),
+              f"summaries: no '{block}'")
+    hits = summ.index(SUMMARY_BLOCKS[0] + "\n") + 3
+    check(not summ[hits].startswith("#"), "summaries: no hits per target")
 
 
 def npz_arrays(path):
@@ -742,10 +817,17 @@ def phase_modify(c2):
                        os.path.join(WORK, "db_a_build.log"))
     db_ab = os.path.join(WORK, "db_ab")
     shutil.copyfile(shard_path(db_a, 0), shard_path(db_ab, 0))
-    stdout, _, wall, counts = driven("modify", ("sketch_packed",),
-                                     ["modify", db_ab, fb])
+    bad = os.path.join(WORK, "modify_malformed.fq")
+    with open(bad, "w") as f:
+        f.write(MALFORMED_FASTQ)
+    stdout, stderr, wall, counts = driven("modify", ("sketch_packed",),
+                                          ["modify", db_ab, fb, bad])
     check(f"Added {MODIFY_ADDED} reference sequences." in stdout,
           f"modify: {stdout[-500:]}")
+    want_fail = f"FAIL: {bad}: malformed fastq file - quality header: " \
+        "ACGTACGTAC"
+    check(fail_lines(stderr) == [want_fail],
+          f"modify: FAIL lines {fail_lines(stderr)}")
     got = npz_arrays(shard_path(db_ab, 0))
     oneshot = npz_arrays(shard_path(c2["db"], 0))
     check(sorted(got) == sorted(oneshot), "modify: array names differ")
@@ -755,6 +837,7 @@ def phase_modify(c2):
     del got, oneshot
     say("modify", build_a_seconds=f"{build_s:.2f}",
         modify_gpu_seconds=f"{wall:.2f}",
+        fail_lines=len(fail_lines(stderr)),
         arrays_equal_oneshot="yes" if not differ else ",".join(differ),
         sketch_launches=counts["sketch_packed"])
     out = os.path.join(WORK, "c2_modified_gpu.txt")

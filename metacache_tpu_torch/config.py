@@ -107,29 +107,16 @@ class ClassifyParams:
 
 @dataclasses.dataclass(frozen=True)
 class QueryPipelineParams:
-    """Fixed-shape knobs of the on-device query pipeline (TPU-specific).
+    """Fixed shapes of the query pipeline on the card.
 
-    The reference uses unbounded std::vectors per read; a TPU kernel needs
-    static shapes. ``max_locations_per_query`` bounds the per-read match list
-    (location gather buffer). If a read's matches exceed it, the tail
-    features' locations are dropped deterministically and a counter is
-    incremented (visible in query stats).
+    The reference keeps an unbounded std::vector of matches per read; the
+    port pads every batch to fixed shapes, so each batch's kernels and
+    torch ops keep one shape and their allocations are reused.
+    ``max_locations_per_query`` bounds the per-read match list (the
+    location gather's [batch, slots] output). If a read's matches exceed
+    it, the tail features' locations are dropped deterministically and a
+    counter is incremented (visible in query stats).
     """
     batch_size: int = 4096
     max_query_len: int = 320      # reads padded/bucketed to this length
     max_locations_per_query: int = 2048
-    # capacity of the FAST first-pass program (two-tier dispatch): most
-    # reads need far fewer match slots than the worst case, so batches run
-    # through a narrow program first and only reads that overflow it are
-    # re-classified through the max_locations_per_query-wide program.
-    # 0 = auto-size from the database's mean bucket size at engine init.
-    fast_locations_per_query: int = 0
-    # per-feature location cap of the fast tier's DIRECT lookup path
-    # (ops/lookup.lookup_matches_direct): each query feature emits exactly
-    # this many match slots, no CSR slot expansion. Reads holding a feature
-    # with more stored locations re-run through the full-width program.
-    # 0 = auto-size from bucket-size stats; -1 = disable the direct path.
-    # Sharded engines (no overflow re-run tier) honor only 0/-1: they use
-    # the direct path only when exact (cap = global max bucket size) and
-    # warn if a positive cap is requested.
-    fast_bucket_cap: int = 0

@@ -14,10 +14,15 @@ src/mode_build.cpp:559-843). Two paths, as in the JAX build:
 Triples go to the JAX package's external sorter, in the JAX build's order,
 so the shard files are the JAX package's, array for array.
 
+A file in no known format or with a malformed record is reported on
+stdout as `FAIL: <path>: <error>` and left out, as the JAX build (and
+mode_build.cpp:630-643) does: the whole file on the native paths, the
+records after the bad one on the WindowBatcher path.
+
 Differences from the JAX build, on purpose:
   * if libmcio cannot load, the build raises (no all-Python build);
-  * a file that cannot be read or parsed aborts the build instead of being
-    reported and silently left out of the database.
+  * a spill chunk that cannot be written ends the build (OSError) instead
+    of leaving the file out.
 """
 from __future__ import annotations
 
@@ -244,7 +249,8 @@ def _sketch_natively(path: str, p: SketchParams, num_shards: int,
     shard (the keys of `sorters`): in RAM, or spilling feature-sorted
     per-shard chunk files for a large one (spill_dir() makes the
     directory). Returns False, having added nothing, when the file holds
-    records the native pass cannot number."""
+    records the native pass cannot number; raises FormatError, having
+    added nothing (and deleted its chunks), when its content is bad."""
     t0 = len(target_nodes)
     spill = os.path.getsize(path) >= SPILL_MIN_BYTES
     if spill:
@@ -360,12 +366,15 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
 
     try:
         for path in files:
-            if p.sketch_size <= NATIVE_MAX_SKETCH and _sketch_natively(
-                    path, p, num_shards, sorters, taxonomy, target_nodes,
-                    seen_names, seq2taxid, progress, spill_dir):
-                continue
-            sketch_records(path, batcher, taxonomy, target_nodes,
-                           seen_names, seq2taxid, progress)
+            try:
+                if p.sketch_size <= NATIVE_MAX_SKETCH and _sketch_natively(
+                        path, p, num_shards, sorters, taxonomy, target_nodes,
+                        seen_names, seq2taxid, progress, spill_dir):
+                    continue
+                sketch_records(path, batcher, taxonomy, target_nodes,
+                               seen_names, seq2taxid, progress)
+            except sequence_io.FormatError as e:
+                print(f"FAIL: {path}: {e}")
         for b in batchers.values():
             b.finish()
 

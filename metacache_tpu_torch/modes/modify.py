@@ -4,8 +4,9 @@
 Counterpart of metacache_tpu/modes/modify.py: the new records are parsed
 in Python and sketched by the port's WindowBatcher on `-device cuda|cpu`
 (default cuda), and their table is merged into shard 0 of the database.
-Unlike the JAX mode, a file that cannot be parsed aborts the run instead
-of being reported and left out.
+A file in no known format or with a malformed record is reported on
+stderr as `FAIL: <path>: <error>`, as in the JAX mode; the records read
+before the error stay.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from ..db import build as build_mod
 from ..db.database import Database
 from ..db.feature_table import ChunkedTripleSorter
 from ..device import resolve_device
-from ..io import taxonomy_io
+from ..io import sequence_io, taxonomy_io
 from ..utils import ArgsParser
 
 
@@ -41,8 +42,11 @@ def main_mode_modify(args: ArgsParser) -> int:
     target_nodes = list(db.target_taxon_node)
     old = len(target_nodes)
     for path in files:
-        build_mod.sketch_records(path, lambda tgt: batcher, db.taxonomy,
-                                 target_nodes, seen, seq2taxid, None)
+        try:
+            build_mod.sketch_records(path, lambda tgt: batcher, db.taxonomy,
+                                     target_nodes, seen, seq2taxid, None)
+        except sequence_io.FormatError as e:
+            print(f"FAIL: {path}: {e}", file=sys.stderr)
     batcher.finish()
 
     new_ft = triples.finalize(db.max_locations_per_feature)

@@ -17,6 +17,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..io import sequence_io
 from ..ops.cuda_build import build_library
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -28,6 +29,9 @@ _lock = threading.Lock()
 _lib = None
 
 PAIRING_CODE = {"none": 0, "": 0, None: 0, "files": 1, "sequences": 2}
+
+#: error kinds of a sketch or spill result (mcio.cpp ErrorKind)
+OK, ERR_CONTENT, ERR_SPILL_IO = 0, 1, 2
 
 
 def library_path() -> str:
@@ -76,6 +80,8 @@ def load_mcio():
             ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 7
         lib.mcio_sk_error.restype = ctypes.c_char_p
         lib.mcio_sk_error.argtypes = [ctypes.c_void_p]
+        lib.mcio_sk_error_kind.restype = ctypes.c_int
+        lib.mcio_sk_error_kind.argtypes = [ctypes.c_void_p]
         lib.mcio_sk_free.restype = None
         lib.mcio_sk_free.argtypes = [ctypes.c_void_p]
         lib.mcio_radix_sort_triples.restype = None
@@ -113,6 +119,8 @@ def load_mcio():
             [ctypes.c_void_p] * 7
         lib.mcio_sp_error.restype = ctypes.c_char_p
         lib.mcio_sp_error.argtypes = [ctypes.c_void_p]
+        lib.mcio_sp_error_kind.restype = ctypes.c_int
+        lib.mcio_sp_error_kind.argtypes = [ctypes.c_void_p]
         lib.mcio_sp_free.restype = None
         lib.mcio_sp_free.argtypes = [ctypes.c_void_p]
         lib.mcio_merge_chunks_csr.restype = ctypes.c_int64
@@ -252,12 +260,22 @@ class SketchedFile:
         self.seq_windows = seq_windows
 
 
+def _raise_error(kind: int, message: bytes) -> None:
+    """The exception of a native result's error (mcio.cpp ErrorKind):
+    FormatError for the input's content, OSError for a spill chunk."""
+    if kind == ERR_CONTENT:
+        raise sequence_io.FormatError(message.decode())
+    if kind == ERR_SPILL_IO:
+        raise OSError(message.decode())
+
+
 def _fetch_sketch_result(lib, handle, t0: int, want_headers: bool):
     import ctypes as ct
-    err = lib.mcio_sk_error(handle)
-    if err:
+    kind = lib.mcio_sk_error_kind(handle)
+    if kind != OK:
+        err = lib.mcio_sk_error(handle)
         lib.mcio_sk_free(handle)
-        raise RuntimeError(err.decode())
+        _raise_error(kind, err)
     n_rec, n_tri, hdr_b = ct.c_int64(), ct.c_int64(), ct.c_int64()
     lib.mcio_sk_counts(handle, ct.byref(n_rec), ct.byref(n_tri),
                        ct.byref(hdr_b))
@@ -289,8 +307,8 @@ def sketch_file(path: str, k: int, s: int, window: int, stride: int,
     """Parse + sketch one FASTA/FASTQ file natively (build hot loop).
 
     Returns None when the file can't be opened / params are out of
-    range; raises RuntimeError on malformed
-    content (mirroring io.sequence_io.FormatError conditions)."""
+    range; raises sequence_io.FormatError when it is in no known format or
+    holds a malformed record (the Python reader's messages)."""
     lib = load_mcio()
     if s > 64 or not (1 <= k <= 16):
         return None
@@ -323,9 +341,11 @@ def sketch_file_spill(path: str, k: int, s: int, window: int, stride: int,
     """Parse + sketch one file natively, spilling feature-sorted triple
     chunks to '<prefix>.s<shard>.c<idx>.bin' instead of returning triples
     (peak memory = parse queue + one chunk buffer per shard, independent
-    of file size — the at-scale build path). Returns None when params are
-    out of range; raises RuntimeError on
-    malformed content or spill IO failure."""
+    of file size — the at-scale build path). Returns None when the file
+    can't be opened / params are out of range. Raises
+    sequence_io.FormatError on content as sketch_file does, and OSError
+    when a chunk cannot be written; either way the chunks this call wrote
+    are deleted first."""
     import ctypes as ct
     lib = load_mcio()
     if s > 64 or not (1 <= k <= 16):
@@ -337,10 +357,8 @@ def sketch_file_spill(path: str, k: int, s: int, window: int, stride: int,
         prefix.encode())
     if not h:
         return None
+    kind = lib.mcio_sp_error_kind(h)
     err = lib.mcio_sp_error(h)
-    if err:
-        lib.mcio_sp_free(h)
-        raise RuntimeError(err.decode())
     n_rec, n_ch, hdr_b = ct.c_int64(), ct.c_int64(), ct.c_int64()
     lib.mcio_sp_counts(h, ct.byref(n_rec), ct.byref(n_ch), ct.byref(hdr_b))
     n, nc = n_rec.value, n_ch.value
@@ -360,6 +378,10 @@ def sketch_file_spill(path: str, k: int, s: int, window: int, stride: int,
                for i in range(n)]
     chunks = [(int(csh[c]), f"{prefix}.s{int(csh[c])}.c{int(cix[c])}.bin",
                int(cct[c])) for c in range(nc)]
+    if kind != OK:
+        for _, cpath, _ in chunks:
+            os.unlink(cpath)
+        _raise_error(kind, err)
     return SpilledFile(headers, lens, wins, chunks)
 
 

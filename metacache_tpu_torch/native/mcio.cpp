@@ -117,10 +117,13 @@ class SeqReader {
     std::string pending_header_;  // fasta: header of the next record
     std::string line_;
     int32_t count_ = 0;
+    bool opened_ = false;
     std::string error_;
 
   public:
     const char* error() const { return error_.empty() ? nullptr : error_.c_str(); }
+    // false after open() only when the file itself could not be opened
+    bool opened() const { return opened_; }
 
     bool open(const char* path) {
         std::string p(path);
@@ -144,11 +147,12 @@ class SeqReader {
             error_ = "can't open file";
             return false;
         }
+        opened_ = true;
         if (!known) {
             // content sniff: first non-blank char
             for (;;) {
                 if (!lr_.getline(line_)) {
-                    error_ = "file format not recognized";
+                    error_ = "file format not recognized: " + p;
                     return false;
                 }
                 size_t i = line_.find_first_not_of(" \t");
@@ -158,7 +162,7 @@ class SeqReader {
                 } else if (line_[i] == '@') {
                     fastq_ = true;
                 } else {
-                    error_ = "file format not recognized";
+                    error_ = "file format not recognized: " + p;
                     return false;
                 }
                 // hand the sniffed line to next():
@@ -512,6 +516,13 @@ int64_t sketch_one(const uint8_t* data, int64_t L, int k, int s, int win,
     return nw;
 }
 
+// what a result's error is (mcio_sk_error_kind, mcio_sp_error_kind)
+enum ErrorKind {
+    MC_OK = 0,
+    MC_ERR_CONTENT = 1,    // unrecognised, malformed or unreadable input
+    MC_ERR_SPILL_IO = 2,   // a spill chunk could not be created or written
+};
+
 struct SketchResult {
     std::vector<std::string> headers;
     std::vector<int64_t> seq_lens;
@@ -521,7 +532,7 @@ struct SketchResult {
     std::deque<std::vector<uint32_t>> feat;
     std::deque<std::vector<int32_t>> wins;
     int64_t n_triples = 0;
-    std::string error;
+    std::string error;   // a content error (MC_ERR_CONTENT)
 };
 
 }  // namespace
@@ -537,14 +548,20 @@ int64_t mcio_num_windows(int64_t L, int64_t win, int64_t stride) {
 // (t0+i) % num_shards == shard_id (add_target_distributed,
 // src/sketch_database.h:519-563); headers/lengths return for ALL records.
 // Returns a result handle (query with mcio_sk_*, free with mcio_sk_free)
-// or nullptr if the file can't be opened.
+// or nullptr if the file can't be opened. A file in no known format, or
+// with a malformed record, gives a handle whose error is MC_ERR_CONTENT.
 void* mcio_sketch_file(const char* path, int k, int s, int win, int stride,
                        int64_t t0, int64_t num_shards, int64_t shard_id,
                        int nthreads) {
     if (s > 64 || k < 1 || k > 16) return nullptr;
     SeqReader rd;
-    if (!rd.open(path)) return nullptr;
+    bool ok = rd.open(path);
+    if (!ok && !rd.opened()) return nullptr;
     SketchResult* res = new SketchResult();
+    if (!ok) {
+        res->error = rd.error();
+        return res;
+    }
 
     // Streaming pipeline: the calling thread parses records and feeds a
     // BOUNDED queue; worker threads sketch and release each record's
@@ -650,7 +667,8 @@ struct SpillResult {
     std::vector<int64_t> seq_lens;
     std::vector<int32_t> seq_windows;
     std::vector<SpillChunkInfo> chunks;
-    std::string error;
+    std::string error;      // a content error (parser thread)
+    std::string io_error;   // a spill IO error (spiller thread, then flush)
 };
 
 // one shard's in-RAM chunk buffer
@@ -686,6 +704,7 @@ bool write_chunk(const std::string& prefix, int64_t shard, ShardBuf& b,
     ok = fclose(fp) == 0 && ok;
     if (!ok) {
         error = std::string("spill chunk write failed: ") + name;
+        remove(name);
         return false;
     }
     chunks.push_back({shard, b.next_index, n});
@@ -707,7 +726,9 @@ extern "C" {
 // shard_ids). Peak memory = the parse queue (256 MB of sequence bytes) +
 // a bounded reorder window of sketched-but-unspilled records + one chunk
 // buffer per requested shard. Query with mcio_sp_*; free with
-// mcio_sp_free.
+// mcio_sp_free. nullptr if the file can't be opened; an error of kind
+// MC_ERR_CONTENT or MC_ERR_SPILL_IO otherwise, with the chunks written
+// before it still listed.
 void* mcio_sketch_file_spill(const char* path, int k, int s, int win,
                              int stride, int64_t t0, int64_t num_shards,
                              const int64_t* shard_ids, int64_t n_shard_ids,
@@ -715,8 +736,13 @@ void* mcio_sketch_file_spill(const char* path, int k, int s, int win,
                              const char* prefix) {
     if (s > 64 || k < 1 || k > 16 || chunk_triples < 1) return nullptr;
     SeqReader rd;
-    if (!rd.open(path)) return nullptr;
+    bool ok = rd.open(path);
+    if (!ok && !rd.opened()) return nullptr;
     SpillResult* res = new SpillResult();
+    if (!ok) {
+        res->error = rd.error();
+        return res;
+    }
     std::vector<char> owned((size_t)num_shards, 0);
     for (int64_t i = 0; i < n_shard_ids; ++i) {
         if (shard_ids[i] >= 0 && shard_ids[i] < num_shards)
@@ -814,7 +840,8 @@ void* mcio_sketch_file_spill(const char* path, int k, int s, int win,
             b.t.insert(b.t.end(), f.size(), tid);
             b.w.insert(b.w.end(), w.begin(), w.end());
             if ((int64_t)b.f.size() >= chunk_triples) {
-                if (!write_chunk(prefix, sh, b, res->chunks, res->error)) {
+                if (!write_chunk(prefix, sh, b, res->chunks,
+                                 res->io_error)) {
                     std::lock_guard<std::mutex> lk(mu);
                     io_failed = true;
                 }
@@ -869,11 +896,12 @@ void* mcio_sketch_file_spill(const char* path, int k, int s, int win,
     for (auto& th : threads) th.join();
     cv_done.notify_all();
     spiller.join();
-    // flush partial chunk buffers
+    // flush partial chunk buffers (not for a file that failed: its chunks
+    // are deleted by the caller)
     for (int64_t sh = 0; sh < num_shards; ++sh) {
-        if (owned[(size_t)sh] && !io_failed) {
+        if (owned[(size_t)sh] && !io_failed && res->error.empty()) {
             if (!write_chunk(prefix, sh, bufs[(size_t)sh], res->chunks,
-                             res->error))
+                             res->io_error))
                 break;
         }
     }
@@ -913,8 +941,17 @@ void mcio_sp_fetch(void* vr, char* headers, int64_t* hdr_off,
     }
 }
 
+// the spill IO error if there is one (it ended the pass), else the content
+// error, else ""
 const char* mcio_sp_error(void* vr) {
-    return ((SpillResult*)vr)->error.c_str();
+    SpillResult* r = (SpillResult*)vr;
+    return (r->io_error.empty() ? r->error : r->io_error).c_str();
+}
+
+int mcio_sp_error_kind(void* vr) {
+    SpillResult* r = (SpillResult*)vr;
+    if (!r->io_error.empty()) return MC_ERR_SPILL_IO;
+    return r->error.empty() ? MC_OK : MC_ERR_CONTENT;
 }
 
 void mcio_sp_free(void* vr) { delete (SpillResult*)vr; }
@@ -1211,6 +1248,10 @@ void mcio_sk_fetch(void* vr, int64_t t0, uint32_t* feat, int32_t* tgt,
 
 const char* mcio_sk_error(void* vr) {
     return ((SketchResult*)vr)->error.c_str();
+}
+
+int mcio_sk_error_kind(void* vr) {
+    return ((SketchResult*)vr)->error.empty() ? MC_OK : MC_ERR_CONTENT;
 }
 
 void mcio_sk_free(void* vr) { delete (SketchResult*)vr; }
