@@ -5,12 +5,15 @@
 
 Phases, each printed on its own line; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
-     versions. Both kernel libraries are built at once (one nvcc per
+     versions. The three kernel libraries are built at once (one nvcc per
      source, in parallel).
   2. kernels vs plain: the CUDA sketch kernel (csrc/sketch.cu) and the
      CUDA gather kernel (csrc/gather.cu) held bit for bit against their
      plain PyTorch versions on the card, at the main paths' shapes and on
-     edge cases. Per kernel and shape: its device time (a CUDA graph of
+     edge cases; the shard merge streamed to the card (the two kernels of
+     csrc/merge.cu) against the same merge on the CPU (their plain
+     versions), table for table, on random tables of 2, 3 and 4 shards
+     with ties, in many chunks. Per kernel and shape: its device time (a CUDA graph of
      20 calls, replayed: no host launch cost), its call time (CUDA events
      over back-to-back calls from Python, host launch cost included), the
      plain version's call time, the one library call that computes the
@@ -65,15 +68,20 @@ Phases, each printed on its own line; any failure exits non-zero:
      4-strain groups, a 5 kbp transposon five times per genome,
      1,048,400 pairs: 5,242 per genome of the nominal 1,048,576; ~5 GB of
      FASTA), built in 2 shards (`build
-     -num-shards 2`, 5 Gbp) and queried fused on cuda: the database holds
-     the JAX package's 209,588,260 features, 707,655,761 locations and a
-     fused max bucket of 508; the classified fraction, over 1,048,576 as
-     bench.py counts it, is within 0.001 of its 0.9987; 128 sketch and 64
-     gather launches; the first 8,192 pairs
-     give the same lines on the CPU. Prints the build's seconds, Gbp/s
-     and peak host RSS, the query's load, upload and loop seconds (as
-     the query prints them), its peak device memory and overflow count,
-     and times the gather kernel on one real batch of it. Needs ~25 GB
+     -num-shards 2`, 5 Gbp) and queried fused on cuda: the shards are
+     merged on the card as they stream up (never on the host), into the
+     JAX package's 209,588,260 features, 707,655,761 locations and a
+     fused max bucket of 508 (read from the engine's device tables); the
+     classified fraction, over 1,048,576 as bench.py counts it, is within
+     0.001 of its 0.9987; 128 sketch and 64 gather launches, one merge
+     and one count launch per planned chunk; the first 8,192 pairs give
+     the same lines on the CPU. Prints the build's seconds, Gbp/s and
+     peak host RSS, the query's database load, table upload (the merge
+     included) and loop seconds (as the query prints them), its peak
+     device memory and overflow count; times the gather kernel on one
+     real batch of it and both merge kernels on its first chunk (staged
+     again from the shard files), each held bit for bit against its
+     plain version there. Needs ~25 GB
      of disk and ~15 GB of host RAM at its peak; the world is removed
      after phase 15.
  15. config3_mesh: the same 2 shards with -mesh: every pair has its line,
@@ -151,6 +159,8 @@ C3_CPU_PAIRS = 8192        # pairs compared with -device cpu
 PALLAS_SKETCH = "metacache_tpu/ops/sketch_pallas.py:165"
 PALLAS_GATHERS = {"k1": "tools/exp_pallas_gather.py:50",
                   "k2": "tools/exp_pallas_gather.py:78"}
+#: no TPU kernel merges shards: the JAX package merges them on the host
+HOST_MERGE = "metacache_tpu/native/mcio.cpp:1351"
 #: config-2's lookup: its location table and the query's [B, lmax] slots
 C2_LOCATIONS = C2_EXPECTED["locations"]
 C2_SLOTS = (16384, 256)
@@ -205,7 +215,8 @@ TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
          "bound_ms", "bound_by", "share_of_bound")
 
 #: launches of each kernel, summed over the paths this run drove
-LAUNCHES = {"sketch_packed": 0, "gather_rows": 0}
+LAUNCHES = {"sketch_packed": 0, "gather_rows": 0, "merge_shards": 0,
+            "merge_count": 0}
 
 
 class SmokeFailure(Exception):
@@ -233,9 +244,23 @@ def port_cli(args, log):
     return time.time() - t0
 
 
-def kernel_modules():
-    from metacache_tpu_torch.ops import gather_cuda, sketch_cuda
-    return {"sketch_packed": sketch_cuda, "gather_rows": gather_cuda}
+def kernel_counters():
+    """Each kernel's wrapper module and the name of its launch count."""
+    from metacache_tpu_torch.ops import gather_cuda, merge_cuda, sketch_cuda
+    return {"sketch_packed": (sketch_cuda, "launches"),
+            "gather_rows": (gather_cuda, "launches"),
+            "merge_shards": (merge_cuda, "merge_launches"),
+            "merge_count": (merge_cuda, "count_launches")}
+
+
+def reset_launches():
+    for mod, count in kernel_counters().values():
+        setattr(mod, count, 0)
+
+
+def read_launches():
+    return {name: getattr(mod, count)
+            for name, (mod, count) in kernel_counters().items()}
 
 
 def driven(path, kernels, args, stdin=None):
@@ -245,14 +270,12 @@ def driven(path, kernels, args, stdin=None):
     stderr, wall seconds, counts)."""
     import torch
     from metacache_tpu_torch import cli
-    mods = kernel_modules()
     out, err = io.StringIO(), io.StringIO()
     old_stdin = sys.stdin
     if stdin is not None:
         sys.stdin = io.StringIO(stdin)
     torch.cuda.synchronize()
-    for m in mods.values():
-        m.launches = 0
+    reset_launches()
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -261,7 +284,7 @@ def driven(path, kernels, args, stdin=None):
     finally:
         sys.stdin = old_stdin
     wall = time.time() - t0
-    counts = {name: m.launches for name, m in mods.items()}
+    counts = read_launches()
     check(rc == 0, f"{path}: {' '.join(args[:2])} failed (rc {rc}): "
                    f"{err.getvalue()[-2000:]}")
     for name in kernels:
@@ -333,13 +356,16 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timed(name, fn, plain, library, bound_ms, bound_by):
-    """Times of one kernel at one shape, printed with its bound."""
+def timed(name, fn, plain, library, bound_ms, bound_by,
+          library_in_graph=True):
+    """Times of one kernel at one shape, printed with its bound. A library
+    call that waits for the card (its output's size) cannot be captured
+    in a CUDA graph: library_in_graph=False leaves its device time out."""
     res = dict(ms=call_ms(fn), device_ms=device_ms(fn),
                plain_ms=call_ms(plain, 3),
                library_ms=None if library is None else call_ms(library),
-               library_device_ms=None if library is None
-               else device_ms(library),
+               library_device_ms=device_ms(library)
+               if library is not None and library_in_graph else None,
                bound_ms=bound_ms, bound_by=bound_by)
     res["share_of_bound"] = bound_ms / res["device_ms"]
     say(name, **{k: ("none" if v is None else
@@ -349,10 +375,11 @@ def timed(name, fn, plain, library, bound_ms, bound_by):
 
 
 def build_kernels():
-    """Both kernel libraries from the checkout's sources, one nvcc per
+    """The kernel libraries from the checkout's sources, one nvcc per
     source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    libs = [m.LIBRARY for m in kernel_modules().values()]
+    libs = list({m.LIBRARY.source: m.LIBRARY
+                 for m, _ in kernel_counters().values()}.values())
     t0 = time.time()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(lambda lib: lib.load(), libs))
@@ -573,6 +600,57 @@ def phase_gather(dev, yardsticks=False):
     return results
 
 
+def random_shards(rng, P, n_keys, max_bucket=8, pairs=64):
+    """P random CSR shard tables: keys from a space of 2 n_keys (many
+    shared) and one at the top u32 value, buckets of 1..max_bucket
+    (target, window) pairs from a space of `pairs` shared by the shards
+    (equal triples: the tie rule), sorted within each bucket."""
+    import numpy as np
+    from metacache_tpu_torch.db.feature_table import FeatureTable
+    out = []
+    for _ in range(P):
+        keys = np.unique(rng.integers(0, 2 * n_keys, n_keys)).astype(
+            np.uint32)
+        keys[-1] = 0xFFFFFFFF
+        sizes = rng.integers(1, max_bucket + 1, len(keys))
+        offsets = np.zeros(len(keys) + 1, np.int64)
+        np.cumsum(sizes, out=offsets[1:])
+        pair = rng.integers(0, pairs, int(offsets[-1]))
+        pair = pair[np.lexsort((pair, np.repeat(np.arange(len(keys)),
+                                                sizes)))]
+        out.append(FeatureTable(keys=keys, offsets=offsets,
+                                loc_tgt=(pair // 8).astype(np.int32),
+                                loc_win=(pair % 8).astype(np.int32)))
+    return out
+
+
+def phase_merge_kernels(dev):
+    """The shard merge streamed to the card (both merge kernels) against
+    the same merge on the CPU (their plain versions), table for table, on
+    random tables of 2, 3 and 4 shards with ties, in many chunks.
+    -> the number of differing elements (0)."""
+    import numpy as np
+    import torch
+    from metacache_tpu_torch.query import upload
+    rng = np.random.default_rng(2026)
+    for P, n_keys, cap in ((2, 50_000, 1 << 24), (3, 50_000, 20_000),
+                           (4, 20_000, 1_000)):
+        tables = random_shards(rng, P, n_keys)
+        chunk, upload.CHUNK = upload.CHUNK, cap
+        try:
+            with upload.Stager(dev) as stager:
+                got = upload.merged_feature_tables(stager, tables)
+            want = upload.merged_feature_tables(
+                upload.Stager(torch.device("cpu")), tables)
+        finally:
+            upload.CHUNK = chunk
+        err = sum(int((got[k].cpu() != want[k]).sum()) for k in want)
+        check(err == 0 and all(got[k].shape == want[k].shape for k in want),
+              f"merged tables differ from the plain merge (P={P})")
+    say("merge_kernels", edge_cases="ok", shards="2,3,4")
+    return 0
+
+
 def classify_seconds(path):
     """The query's own '# time:' line: classification without DB load."""
     with open(path) as f:
@@ -583,10 +661,19 @@ def classify_seconds(path):
 
 
 def compare_cpu(db, reads, flags, limit, gpu_out, tag):
+    """The first `limit` reads queried with -device cpu in a process of
+    its own: their lines equal the card's. Prints that query's set-up
+    seconds (on the CPU a fused database's shards merge through the merge
+    kernel's plain version, inside `table upload`)."""
     cpu_out = os.path.join(WORK, f"{tag}_cpu.txt")
-    port_cli(["query", db] + reads + flags
-             + ["-device", "cpu", "-query-limit", str(limit), "-out", cpu_out],
-             os.path.join(WORK, f"{tag}_cpu.log"))
+    log = os.path.join(WORK, f"{tag}_cpu.log")
+    wall = port_cli(["query", db] + reads + flags + ["-device", "cpu",
+                     "-query-limit", str(limit), "-out", cpu_out], log)
+    with open(log) as f:
+        err = f.read()
+    say(tag, cpu_query_wall_seconds=f"{wall:.2f}",
+        cpu_database_load_seconds=setup_seconds(err, "database load"),
+        cpu_table_upload_seconds=setup_seconds(err, "table upload"))
     cpu = mapping_lines(cpu_out)
     gpu = mapping_lines(gpu_out)[:limit]
     check(len(cpu) == limit, f"{tag}: CPU run wrote {len(cpu)} lines")
@@ -1037,13 +1124,10 @@ def rank_worker(counts_path, args):
     sys.path.insert(0, REPO)
     from metacache_tpu_torch import cli
     from metacache_tpu_torch.utils.memory import vm_peak_mb
-    mods = kernel_modules()
-    for m in mods.values():
-        m.launches = 0
+    reset_launches()
     rc = cli.main(args)
     with open(counts_path, "w") as f:
-        json.dump(dict({name: m.launches for name, m in mods.items()},
-                       peak_rss_mb=vm_peak_mb()), f)
+        json.dump(dict(read_launches(), peak_rss_mb=vm_peak_mb()), f)
     return rc
 
 
@@ -1178,6 +1262,14 @@ def database_size(db):
                 max_bucket=int(features.bucket_sizes().max()))
 
 
+def device_tables_size(tables):
+    """The same numbers, from an engine's device tables."""
+    offsets = tables["offsets"]
+    return dict(features=tables["keys"].numel(),
+                locations=tables["locations"].numel(),
+                max_bucket=int((offsets[1:] - offsets[:-1]).max()))
+
+
 def overflow_count(stderr):
     """Reads whose match list was cut at -max-locations-per-query, from
     the query's stderr warning (0 without one)."""
@@ -1191,17 +1283,20 @@ def phase_config3():
     """bench.py's config-3 world (200 targets x 25 Mbp in 4-strain
     groups, a 5 kbp transposon 5 times per genome, 1,048,400 pairs),
     built in C3_SHARDS shards by the port's CLI and queried fused on the
-    card. Checks the database's size and the classified fraction against
-    the JAX package's numbers for the same seeded world (the fraction as
-    bench.measure_config3 computes it: classified pairs over the nominal
-    C3_PAIRS), that every pair has its line, that both kernels
-    ran once per batch (the sketch per mate), and the first C3_CPU_PAIRS
+    card, the shards merged there as they stream up. Checks that no host
+    merge was made, the fused tables' size and the classified fraction
+    against the JAX package's numbers for the same seeded world (the
+    fraction as bench.measure_config3 computes it: classified pairs over
+    the nominal C3_PAIRS), that every pair has its line, that the sketch
+    and gather kernels ran once per batch (the sketch per mate) and both
+    merge kernels once per planned chunk, and the first C3_CPU_PAIRS
     pairs against -device cpu. Times the gather kernel on one real batch
-    of this query."""
+    of this query and the merge kernels on its first chunk."""
     import bench
     import torch
     from metacache_tpu_torch.modes import query as query_mode
     from metacache_tpu_torch.ops import lookup
+    from metacache_tpu_torch.query import upload
     bench.C3 = os.path.join(WORK, "c3")
     t0 = time.time()
     bench.make_config3_world()
@@ -1221,13 +1316,15 @@ def phase_config3():
     reads = [os.path.join(c3, "reads_1.fa"), os.path.join(c3, "reads_2.fa")]
     flags = ["-pairfiles", "-lowest", "species"] + PIPELINE_FLAGS
     out = os.path.join(WORK, "c3_gpu.txt")
-    batch, loaded = {}, []
+    batch, opened, plans, fused = {}, [], [], []
 
-    def keep(fn):        # the database the fused query loaded
-        def load(*args):
-            loaded.append(fn(*args))
-            return loaded[-1]
-        return load
+    def watch(seen):     # what the query opened, planned and merged
+        def spy(fn):
+            def run(*args):
+                seen.append(fn(*args))
+                return seen[-1]
+            return run
+        return spy
 
     def capture(fn):     # the first batch's gather inputs
         def gather(table, idx, n_valid, pad):
@@ -1238,32 +1335,41 @@ def phase_config3():
         return gather
 
     torch.cuda.reset_peak_memory_stats()
-    with spying(query_mode, "load_all_shards", keep), \
+    with spying(query_mode, "open_all_shards", watch(opened)), \
+            spying(upload, "plan_chunks", watch(plans)), \
+            spying(upload, "merged_feature_tables", watch(fused)), \
             spying(lookup, "gather_rows", capture):
         _, err, wall, counts = driven(
             "config3", (), ["query", db] + reads + flags + ["-out", out])
-    check(len(loaded) == 1, f"config-3: {len(loaded)} databases loaded")
-    size = database_size(loaded.pop())
     peak = torch.cuda.max_memory_allocated()
+    check(len(opened) == 1 and len(fused) == 1 and len(plans) == 1,
+          f"config-3: {len(opened)} databases opened, {len(fused)} merged "
+          "on the card")
+    shards = opened.pop()
+    check(not shards.merged_on_host,
+          "config-3: the fused query merged the shards on the host")
+    size = device_tables_size(fused.pop())
     lines = mapping_lines(out)
     n = len(lines)
     frac = classified_fraction(lines)
     frac_bench = frac * n / bench.C3_PAIRS
     qs = classify_seconds(out)
     batches = -(-c3_pairs() // BATCH_SIZE)
+    chunks = len(plans[0])
     say("config3", pairs=n, **size, query_wall_seconds=f"{wall:.2f}",
-        load_all_shards_seconds=setup_seconds(err, "database load"),
+        database_load_seconds=setup_seconds(err, "database load"),
         table_upload_seconds=setup_seconds(err, "table upload"),
         classify_seconds=f"{qs:.3f}", pairs_per_s_classify=f"{n / qs:.1f}",
         pairs_per_s_wall=f"{n / wall:.1f}", classified_frac=f"{frac:.4f}",
         classified_frac_of_c3_pairs=f"{frac_bench:.4f}",
         overflow_reads=overflow_count(err), peak_device_bytes=peak,
-        sketch_launches=counts["sketch_packed"],
-        gather_launches=counts["gather_rows"])
+        merge_chunks=chunks, **{f"{k}_launches": v
+                                for k, v in counts.items()})
     check(n == c3_pairs(), f"config-3: {n} mapping lines, expected "
                            f"{c3_pairs()}")
     for name, want in (("sketch_packed", 2 * batches),
-                       ("gather_rows", batches)):
+                       ("gather_rows", batches), ("merge_shards", chunks),
+                       ("merge_count", chunks)):
         LAUNCHES[name] += counts[name]
         check_launched("config3", name, counts[name], want)
     if c3_world_is_full():
@@ -1276,8 +1382,60 @@ def phase_config3():
     check(bool(batch), "config-3: the lookup gathered nothing")
     gather = gather_at(batch)
     batch.clear()
+    merge = merge_at(shards.shard_features(), plans[0][0])
     return dict(db=db, dir=c3, reads=reads, flags=flags, out=out,
-                gather=gather)
+                gather=gather, merge=merge)
+
+
+def merge_bound(chunk):
+    """The merge's bound on one chunk: its inputs read once (keys, offsets,
+    targets, windows, bounds) and its outputs written once (a packed
+    location and a key per location)."""
+    P = chunk.bounds.shape[1] - 1
+    nk = chunk.keys.numel()
+    return bound(4 * nk + 8 * (nk + P) + 8 * chunk.nl + 16 * (P + 1)
+                 + 12 * chunk.nl, 0)
+
+
+def merge_at(tables, first):
+    """The merge kernels on the first real chunk of the config-3 query,
+    staged again from the shard files (so the query ran without a copy
+    of it on the card): bit-equal to their plain versions, and timed."""
+    import torch
+    from metacache_tpu_torch.ops import merge_cuda
+    from metacache_tpu_torch.ops.merge import (count_keys_reference,
+                                               merge_chunk_reference)
+    from metacache_tpu_torch.query import upload
+    dev = torch.device(DEVICE)
+    with upload.Stager(dev) as stager:
+        c = upload._Chunk(stager, tables, *first, locations=True)
+        stager.ready()
+    args = (c.keys, c.offs, c.tgt, c.win, c.bounds)
+    loc = torch.empty(c.nl, dtype=torch.int64, device=dev)
+    key = merge_cuda.merge_chunk(*args, loc)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    merge_cuda.count_keys(c.keys, c.bounds, count)
+    want_loc, want_key = merge_chunk_reference(*args)
+    err = int((loc != want_loc).sum()) + int((key != want_key).sum())
+    count_err = abs(int(count) - count_keys_reference(c.keys))
+    check(err == 0, f"merge kernel differs from plain in {err} elements "
+                    "(config-3 chunk)")
+    check(count_err == 0, f"merge count kernel differs from plain by "
+                          f"{count_err} (config-3 chunk)")
+    P = c.bounds.shape[1] - 1
+    name = f"config3_P{P}_NK{c.keys.numel()}_NL{c.nl}"
+    res = timed(f"merge_shards_{name}",
+                lambda: merge_cuda.merge_chunk(*args, loc),
+                lambda: merge_chunk_reference(*args), None,
+                *merge_bound(c))
+    counted = timed(f"merge_count_{name}",
+                    lambda: merge_cuda.count_keys(c.keys, c.bounds, count),
+                    lambda: count_keys_reference(c.keys),
+                    lambda: torch.unique(c.keys),
+                    *bound(4 * c.keys.numel() + 16 * (P + 1) + 8, 0),
+                    library_in_graph=False)
+    return {"merge_shards": dict(res, err=err, shape=name),
+            "merge_count": dict(counted, err=count_err, shape=name)}
 
 
 def gather_at(batch):
@@ -1372,7 +1530,7 @@ def use_repo_tests_package():
     sys.modules["tests"] = pkg
 
 
-def kernels_json(sketch, gather):
+def kernels_json(sketch, gather, merge):
     cell = sketch["cells"]
     c2 = gather["config2"]
     c3 = gather["config3"]
@@ -1396,6 +1554,17 @@ def kernels_json(sketch, gather):
             **{f"k1_{k}": gather["k1"][k] for k in TIMES},
             config3_shape=c3["shape"],
             **{f"config3_{k}": c3[k] for k in TIMES}))
+    # the shard merge (no TPU kernel: the JAX package merges on the host),
+    # timed on the first real chunk of the fused config-3 query; its edge
+    # cases (3 and 4 shards, ties) count in max_abs_err
+    for name in ("merge_shards", "merge_count"):
+        res = merge[name]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="metacache_tpu_torch/csrc/merge.cu", replaces=HOST_MERGE,
+            launches=LAUNCHES[name], max_abs_err=max(res["err"],
+                                                     merge["edges_err"]),
+            shape=res["shape"], **{k: res[k] for k in TIMES}))
     return {"kernels": rows}
 
 
@@ -1415,6 +1584,7 @@ def kernel_times(root) -> int:
         dev = torch.device("cuda")
         phase_kernel(dev)
         phase_gather(dev, yardsticks=True)
+        phase_merge_kernels(dev)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1456,6 +1626,7 @@ def main() -> int:
         dev = torch.device("cuda")
         sketch = timed_phase("kernel", phase_kernel, dev)
         gather = timed_phase("gather", phase_gather, dev)
+        edges_err = timed_phase("merge_kernels", phase_merge_kernels, dev)
         c2 = timed_phase("config2", phase_config2)
         big = timed_phase("realistic", phase_realistic)
         timed_phase("evaluation", phase_evaluation, c2)
@@ -1469,13 +1640,14 @@ def main() -> int:
         timed_phase("realistic_mesh", phase_realistic_mesh, big)
         c3 = timed_phase("config3", phase_config3)
         gather["config3"] = c3["gather"]
+        merge = dict(c3["merge"], edges_err=edges_err)
         timed_phase("config3_mesh", phase_config3_mesh, c3)
         timed_phase("self_contained", phase_self_contained)
         say("done", seconds=f"{time.time() - t0:.1f}")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps(kernels_json(sketch, gather)), flush=True)
+    print(json.dumps(kernels_json(sketch, gather, merge)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

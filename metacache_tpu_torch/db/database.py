@@ -76,6 +76,12 @@ class Database:
             out[:-1] = nodes
         return out
 
+    def shard_features(self) -> List[FeatureTable]:
+        """The feature tables the query engine's device tables are made
+        of: this database's own (FusedDatabase: its shards', until they
+        are merged on the host)."""
+        return [self.features]
+
     # ------------------------------------------------------------ maintenance
     def remove_overpopulated_features(self, max_locs: int,
                                       global_counts=None) -> int:
@@ -264,6 +270,39 @@ class Database:
         }
 
 
+class FusedDatabase(Database):
+    """Several shards of one database queried as one: the first shard's
+    metadata over every shard's feature table. The tables are not merged
+    on the host unless `features` is read (info, the tuning flags that
+    rewrite buckets); the query engine merges them on its device instead
+    (query/upload.py), and uses the host merge only where one was made,
+    so no path builds both."""
+
+    def __init__(self, shards: Sequence[Database]):
+        self._shards = [d.features for d in shards]
+        super().__init__(**dict(
+            {f.name: getattr(shards[0], f.name)
+             for f in dataclasses.fields(Database)},
+            features=None, num_shards=1, shard_id=0))
+
+    @property
+    def features(self) -> FeatureTable:
+        if self._features is None:
+            self._features = FeatureTable.concat_shards(self._shards)
+        return self._features
+
+    @features.setter
+    def features(self, table: Optional[FeatureTable]) -> None:
+        self._features = table
+
+    @property
+    def merged_on_host(self) -> bool:
+        return self._features is not None
+
+    def shard_features(self) -> List[FeatureTable]:
+        return [self._features] if self.merged_on_host else self._shards
+
+
 def database_from_arrays(*, sketch: Sequence[int],
                          query_sketch: Sequence[int],
                          max_locations_per_feature: int,
@@ -338,8 +377,10 @@ def print_static_properties(db: Database):
         "------------------------------------------------")
 
 
-def print_content_properties(db: Database):
-    """(src/sketch_database.h:1206-1237)"""
+def print_content_properties(db: Database,
+                             bucket_sizes: Optional[np.ndarray] = None):
+    """(src/sketch_database.h:1206-1237); the buckets are db.features'
+    unless their sizes are given (a query's device tables)."""
     if db.target_count > 0:
         ranked = int(np.count_nonzero(
             db.taxonomy.parent_taxid[db.target_taxon_node] != NONE_TAXID))
@@ -347,13 +388,15 @@ def print_content_properties(db: Database):
               f"ranked targets       {ranked}\n"
               f"taxa in tree         "
               f"{len(db.taxonomy) - 1 - db.target_count}")
-    if db.features.num_keys > 0:
-        mx, mean, std, skew = bucket_size_moments(db.features.bucket_sizes())
+    sizes = db.features.bucket_sizes() if bucket_sizes is None \
+        else bucket_sizes
+    if len(sizes) > 0:
+        mx, mean, std, skew = bucket_size_moments(sizes)
         print("------------------------------------------------\n"
-              f"buckets              {db.features.num_keys}\n"
+              f"buckets              {len(sizes)}\n"
               f"bucket size          max: {mx} mean: {mean:g} "
               f"+/- {std:g} <> {skew:g}\n"
-              f"features             {db.features.num_keys}\n"
+              f"features             {len(sizes)}\n"
               "dead features        0\n"
-              f"locations            {db.features.num_locations}")
+              f"locations            {int(sizes.sum())}")
     print("------------------------------------------------")

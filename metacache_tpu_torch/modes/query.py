@@ -31,8 +31,8 @@ import torch
 
 from .. import native
 from ..config import ClassifyParams, QueryPipelineParams
-from ..db.database import Database, shard_path
-from ..db.feature_table import FeatureTable
+from ..db.database import (Database, FusedDatabase, print_content_properties,
+                           print_static_properties, shard_path)
 from ..db.taxonomy import Rank, rank_from_name
 from ..device import resolve_device
 from ..io import sequence_io
@@ -286,19 +286,23 @@ def count_shards(dbname: str) -> int:
     return n
 
 
-def load_all_shards(dbname: str) -> Database:
-    """Load every '<dbname>_<s>.npz' shard, feature tables memory-mapped
-    (load_shard), and fuse their feature tables for single-device
-    querying."""
+def open_all_shards(dbname: str) -> Database:
+    """Every '<dbname>_<s>.npz' shard, feature tables memory-mapped
+    (load_shard): one shard as it is, several as a FusedDatabase, whose
+    tables the query engine merges on its device as they stream up (no
+    fused table is built on the host unless one is asked for)."""
     n = count_shards(dbname)
     if not n:
         raise FileNotFoundError(f"can't open file {shard_path(dbname, 0)}")
     shards = [load_shard(dbname, s) for s in range(n)]
-    db = shards[0]
-    if len(shards) > 1:
-        db.features = FeatureTable.concat_shards([d.features for d in shards])
-        db.num_shards = 1
-        db.shard_id = 0
+    return shards[0] if n == 1 else FusedDatabase(shards)
+
+
+def load_all_shards(dbname: str) -> Database:
+    """open_all_shards with the shards' feature tables fused on the host
+    (info)."""
+    db = open_all_shards(dbname)
+    db.features   # a FusedDatabase merges its shards on first read
     return db
 
 
@@ -702,7 +706,7 @@ def main_mode_query(args: ArgsParser) -> int:
         engine, db = _mesh_engine(dbname, opt, device)
     if engine is None:
         with setup_span("database load", device):
-            db = load_all_shards(dbname)
+            db = open_all_shards(dbname)
         _apply_database_tuning(opt, db)
         _adapt_options_to_database(opt, db)
     if not distributed.is_writer():
@@ -711,16 +715,24 @@ def main_mode_query(args: ArgsParser) -> int:
         o.query_mappings_file, o.split_files = os.devnull, False
         o.abundance_file = o.targets_file = ""
     if opt.output.show_db_properties:
-        from ..db.database import (print_content_properties,
-                                   print_static_properties)
         print_static_properties(db)
-        print_content_properties(db)
     # ONE engine (the database on the device) serves every output group
     if engine is None:
+        merged = len(db.shard_features())
         with setup_span("table upload", device):
             engine = QueryEngine(db, opt.classify, opt.pipeline,
                                  device=device,
                                  target_window_k=_window_k(opt))
+        if merged > 1:
+            print(f"# {merged} shards merged on {device.type}",
+                  file=sys.stderr)
+    if opt.output.show_db_properties:
+        bucket_sizes = None     # -mesh: the first shard's, as JAX prints
+        if not isinstance(engine, ShardedQueryEngine):
+            # the fused buckets, from the device tables (no host merge)
+            offsets = engine.tables["offsets"]
+            bucket_sizes = (offsets[1:] - offsets[:-1]).cpu().numpy()
+        print_content_properties(db, bucket_sizes)
 
     if opt.output.split_files and opt.output.query_mappings_file:
         # one output (and statistics) per input file / file pair
@@ -794,7 +806,7 @@ def run_interactive_query_mode(dbname: str, init_args: ArgsParser,
     apply once, from the initial command line; every line runs on the
     initial command line's -device. As in the JAX package, a line's -mesh
     is ignored: every line runs on the fused database."""
-    db = load_all_shards(dbname)
+    db = open_all_shards(dbname)
     _apply_database_tuning(get_query_options(init_args, device), db)
     init_argv = ["query", dbname]
     engines: Dict[tuple, QueryEngine] = {}

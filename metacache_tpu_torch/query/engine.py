@@ -41,33 +41,7 @@ from ..ops.candidates import generate_candidates
 from ..ops.classify_op import classify_lca
 from ..ops.lookup import LOC_SHIFT, lookup_matches
 from ..ops.sketch_cuda import sketch_packed
-
-_CHUNK = 1 << 24
-
-
-def _chunk_int64(arr: np.ndarray, o: int, device: torch.device
-                 ) -> torch.Tensor:
-    """arr[o:o + _CHUNK] (a host array of integers, possibly a read-only
-    memmap) -> int64 tensor on `device`. The chunk crosses to the device
-    in its own width and is widened there: unsigned words go as the signed
-    words of the same bits and are masked back."""
-    part = np.array(arr[o:o + _CHUNK])
-    mask = None
-    if part.dtype.kind == "u":
-        mask = (1 << (8 * part.dtype.itemsize)) - 1
-        part = part.view(f"i{part.dtype.itemsize}")
-    out = torch.from_numpy(part).to(device).long()
-    return out if mask is None else out & mask
-
-
-def _to_device_int64(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array (possibly a read-only memmap) -> int64 tensor on
-    `device`, copied in chunks so no full-size int64 host copy exists."""
-    out = torch.empty(len(arr), dtype=torch.int64, device=device)
-    for o in range(0, len(arr), _CHUNK):
-        part = _chunk_int64(arr, o, device)
-        out[o:o + len(part)] = part
-    return out
+from . import upload
 
 
 def tables_from_database(db: Database, device: torch.device,
@@ -77,32 +51,30 @@ def tables_from_database(db: Database, device: torch.device,
     """The engine's device tables, from the same numpy arrays the JAX
     engine uploads: sorted feature keys, CSR offsets, locations packed as
     (target << 32 | window), the target -> candidate-taxon map and the
-    ranked lineage table. All int64.
+    ranked lineage table. All int64, streamed up by query/upload.py; a
+    database of several shards not yet merged on the host is merged on
+    the device.
 
     Only the candidate-taxon map depends on lowest_rank: given the tables
     of another rank (`like`, same database and device), the others are
     shared instead of uploaded again."""
-    tct = _to_device_int64(db.target_cand_tax(lowest_rank), device)
-    if like is not None:
-        return dict(like, target_cand_tax=tct)
-    return dict(feature_tables(db, device), target_cand_tax=tct,
-                ranked_lineage=torch.from_numpy(np.asarray(
-                    db.taxonomy.ranked_lineage, dtype=np.int64)).to(device))
+    with upload.Stager(device) as stager:
+        tct = upload.upload_int64(stager, db.target_cand_tax(lowest_rank))
+        if like is not None:
+            return dict(like, target_cand_tax=tct)
+        lineage = np.asarray(db.taxonomy.ranked_lineage)
+        return dict(upload.feature_tables(stager, db.shard_features()),
+                    target_cand_tax=tct,
+                    ranked_lineage=upload.upload_int64(
+                        stager, lineage.ravel()).view(lineage.shape))
 
 
 def feature_tables(db: Database, device: torch.device
                    ) -> Dict[str, torch.Tensor]:
     """The feature table's part of tables_from_database: keys, offsets,
     packed locations (one shard's own, in the sharded engine)."""
-    keys, offsets, loc_tgt, loc_win = db.features.device_arrays()
-    locations = torch.empty(len(loc_tgt), dtype=torch.int64, device=device)
-    for o in range(0, len(loc_tgt), _CHUNK):
-        t = _chunk_int64(loc_tgt, o, device)
-        locations[o:o + len(t)] = (t << LOC_SHIFT) | _chunk_int64(
-            loc_win, o, device)
-    return {"keys": _to_device_int64(keys, device),
-            "offsets": _to_device_int64(offsets, device),
-            "locations": locations}
+    with upload.Stager(device) as stager:
+        return upload.feature_tables(stager, db.shard_features())
 
 
 def make_target_groups(db: Database, rank_code: int) -> np.ndarray:

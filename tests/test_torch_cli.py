@@ -312,6 +312,8 @@ def test_mesh_query_equals(world, db8, flags, oracle):
         assert "falling back" not in ro.stderr
     else:
         ro = port_cli(base + ["-device", "cpu", "-out", f"o{tag}.txt"], world)
+        # the fused oracle merges the 8 shards on its device
+        assert "# 8 shards merged on cpu" in ro.stderr
     assert ro.returncode == 0, ro.stderr
     want = _result_lines(os.path.join(world, f"o{tag}.txt"))
     assert sum(not ln.startswith("#") for ln in want) >= 240

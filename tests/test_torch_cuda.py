@@ -1,7 +1,8 @@
-"""The CUDA kernels (metacache_tpu_torch/csrc/sketch.cu, csrc/gather.cu)
-against their plain PyTorch versions on the card, and the engine on the
-card (with and without clade exclusion and window hit counts) against the
-engine on the CPU. Needs a CUDA card and nvcc; skips without a card.
+"""The CUDA kernels (metacache_tpu_torch/csrc/sketch.cu, csrc/gather.cu,
+csrc/merge.cu) against their plain PyTorch versions on the card, and the
+engine on the card (with and without clade exclusion and window hit
+counts, fused over two shards merged on the card) against the engine on
+the CPU. Needs a CUDA card and nvcc; skips without a card.
 Tolerance: bit equality.
 
 On the card's machine (which has no JAX, hence no conftest):
@@ -36,6 +37,31 @@ def reads(seed, B, L, ambig_rate=0.02):
     codes[np.arange(L)[None, :] >= lens[:, None]] = 255
     p, a = encode.np_pack_codes(codes)
     return p, a, lens
+
+
+def random_shards(rng, P, n_keys, max_bucket=8, pairs=64):
+    """P random CSR shard tables: keys from a space of 2 n_keys (many
+    shared), the last shard's from its upper half only (so it has no key
+    in the lower chunks), and one at the top u32 value; buckets of
+    1..max_bucket (target, window) pairs from a space of `pairs` shared by
+    the shards (equal triples: the tie rule), sorted within each bucket."""
+    from metacache_tpu_torch.db.feature_table import FeatureTable
+    out = []
+    for s in range(P):
+        lo = n_keys if s == P - 1 else 0
+        keys = np.unique(rng.integers(lo, 2 * n_keys, n_keys)).astype(
+            np.uint32)
+        keys[-1] = 0xFFFFFFFF
+        sizes = rng.integers(1, max_bucket + 1, len(keys))
+        offsets = np.zeros(len(keys) + 1, np.int64)
+        np.cumsum(sizes, out=offsets[1:])
+        pair = rng.integers(0, pairs, int(offsets[-1]))
+        pair = pair[np.lexsort((pair, np.repeat(np.arange(len(keys)),
+                                                sizes)))]
+        out.append(FeatureTable(keys=keys, offsets=offsets,
+                                loc_tgt=(pair // 8).astype(np.int32),
+                                loc_win=(pair % 8).astype(np.int32)))
+    return out
 
 
 @pytest.mark.parametrize("B,L", [(1, 64), (37, 104), (1007, 256),
@@ -315,6 +341,77 @@ def test_sharded_engine_cuda_matches_cpu(dev, tmp_path):
         np.testing.assert_array_equal(getattr(res[0], f), getattr(res[1], f),
                                       err_msg=f)
     assert (res[0].match_total[:200] > 0).sum() > 150
+
+
+@pytest.mark.parametrize("P,n_keys,cap", [(2, 3000, 1 << 24),
+                                          (3, 20000, 5000),
+                                          (4, 100000, 1 << 16),
+                                          (2, 2_000_000, 1 << 24)])
+def test_merge_kernels_match_plain(dev, monkeypatch, P, n_keys, cap):
+    """The merge and count kernels bit for bit against their plain
+    versions on every planned chunk of random shard tables (shared keys,
+    equal triples in several shards), then the whole streamed merge on
+    the card against the same on the CPU, in chunks of `cap` locations."""
+    from metacache_tpu_torch.ops import merge_cuda
+    from metacache_tpu_torch.ops.merge import (count_keys_reference,
+                                               merge_chunk_reference)
+    from metacache_tpu_torch.query import upload
+    monkeypatch.setattr(upload, "CHUNK", cap)
+    tables = random_shards(np.random.default_rng(P * n_keys), P, n_keys)
+    plan = upload.plan_chunks(tables, cap)
+    for begin, end in plan:
+        with upload.Stager(dev) as stager:
+            c = upload._Chunk(stager, tables, begin, end, locations=True)
+            stager.ready()
+        loc = torch.empty(c.nl, dtype=torch.int64, device=dev)
+        before = merge_cuda.merge_launches, merge_cuda.count_launches
+        key = merge_cuda.merge_chunk(c.keys, c.offs, c.tgt, c.win, c.bounds,
+                                     loc)
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        merge_cuda.count_keys(c.keys, c.bounds, count)
+        torch.cuda.synchronize()
+        assert (merge_cuda.merge_launches, merge_cuda.count_launches) == \
+            (before[0] + 1, before[1] + 1)
+        want_loc, want_key = merge_chunk_reference(c.keys, c.offs, c.tgt,
+                                                   c.win, c.bounds)
+        assert torch.equal(loc, want_loc) and torch.equal(key, want_key)
+        assert int(count) == count_keys_reference(c.keys)
+    with upload.Stager(dev) as stager:
+        got = upload.merged_feature_tables(stager, tables)
+    want = upload.merged_feature_tables(upload.Stager(torch.device("cpu")),
+                                        tables)
+    for name, w in want.items():
+        assert torch.equal(got[name].cpu(), w), name
+
+
+def test_fused_engine_merges_on_the_card(dev, tmp_path):
+    """Two shards opened fused: the engine on the card merges them there
+    (no host merge) into the tables of the host-merged database, and
+    classifies as the engine on the CPU does."""
+    from metacache_tpu_torch.config import ClassifyParams, QueryPipelineParams
+    from metacache_tpu_torch.db.database import FusedDatabase
+    from metacache_tpu_torch.ops import merge_cuda
+    from metacache_tpu_torch.query.engine import (QueryEngine,
+                                                  tables_from_database)
+
+    dbs, inputs, _ = engine_world(tmp_path, 2)
+    fused = FusedDatabase(dbs)
+    pipeline = QueryPipelineParams(batch_size=256, max_query_len=128,
+                                   max_locations_per_query=64)
+    classify = ClassifyParams(max_candidates=3)
+    n = merge_cuda.merge_launches
+    eng = QueryEngine(fused, classify, pipeline, device=dev)
+    assert merge_cuda.merge_launches > n and not fused.merged_on_host
+    host = FusedDatabase(dbs)
+    host.features          # merged on the host
+    want = tables_from_database(host, torch.device("cpu"))
+    for name in ("keys", "offsets", "locations"):
+        assert torch.equal(eng.tables[name].cpu(), want[name]), name
+    cpu = QueryEngine(fused, classify, pipeline, device=torch.device("cpu"))
+    got, ref = (e.classify_batch(*inputs, 200) for e in (eng, cpu))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f),
+                                      err_msg=f)
 
 
 def _launch(args, cwd, ranks, timeout=300):

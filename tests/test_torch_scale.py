@@ -107,6 +107,8 @@ def test_wide_bucket_query_equals_jax(repeat_world, mesh):
     assert rt.returncode == 0, rt.stderr
     for r in (rj, rt):
         assert "falling back" not in r.stderr
+    # fused, the port merges the 2 shards on its device as they stream up
+    assert ("# 2 shards merged on cpu" in rt.stderr) == (not mesh)
     want = _result_lines(os.path.join(repeat_world, f"j{tag}.txt"))
     assert sum(not ln.startswith("#") and "\t|\t" in ln
                for ln in want) == 240
@@ -122,25 +124,28 @@ def test_table_upload_widens_in_chunks(monkeypatch, dtype):
     by chunk, and are widened to int64 there: unsigned keys keep their
     value, signed words their sign, across chunk edges and a short last
     chunk; locations pack as (target << 32) | window."""
+    from metacache_tpu_torch.db.feature_table import FeatureTable
     from metacache_tpu_torch.ops.lookup import LOC_SHIFT
-    from metacache_tpu_torch.query import engine
-    monkeypatch.setattr(engine, "_CHUNK", 7)
+    from metacache_tpu_torch.query import engine, upload
+    monkeypatch.setattr(upload, "CHUNK", 7)
     info = np.iinfo(dtype)
     arr = np.random.default_rng(7).integers(info.min, info.max, 45,
                                             dtype=dtype, endpoint=True)
-    got = engine._to_device_int64(arr, torch.device("cpu"))
+    got = upload.upload_int64(upload.Stager(torch.device("cpu")), arr)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), arr.astype(np.int64))
 
-    class Features:
-        def device_arrays(self):
-            return arr[:3], np.arange(4), np.arange(45, dtype=np.int32), \
-                np.arange(45, dtype=np.int32)[::-1].copy()
-
-    db = type("Db", (), {"features": Features()})()
-    locs = engine.feature_tables(db, torch.device("cpu"))["locations"]
+    table = FeatureTable(keys=arr[:3], offsets=np.array([0, 9, 20, 45]),
+                         loc_tgt=np.arange(45, dtype=np.int32),
+                         loc_win=np.arange(45, dtype=np.int32)[::-1].copy())
+    db = type("Db", (), {"shard_features": lambda self: [table]})()
+    tables = engine.feature_tables(db, torch.device("cpu"))
+    np.testing.assert_array_equal(tables["keys"].numpy(),
+                                  arr[:3].astype(np.int64))
+    np.testing.assert_array_equal(tables["offsets"].numpy(), table.offsets)
     np.testing.assert_array_equal(
-        locs.numpy(), (np.arange(45) << LOC_SHIFT) | np.arange(45)[::-1])
+        tables["locations"].numpy(),
+        (np.arange(45) << LOC_SHIFT) | np.arange(45)[::-1])
 
 
 def test_peak_rss_without_vmhwm(monkeypatch):
@@ -219,8 +224,8 @@ def test_config3_phases_rehearsed_on_cpu(tmp_path, monkeypatch):
                         lambda path, name, n, expected=None:
                         launched.append((path, name, expected)))
 
-    def timed(name, fn, plain, library, bound_ms, bound_by):
-        for f in (fn, plain, library):
+    def timed(name, fn, plain, library, bound_ms, bound_by, **kw):
+        for f in (fn, plain, library or plain):
             f()
         return dict({k: 0.0 for k in chip_smoke.TIMES}, bound_ms=bound_ms,
                     bound_by=bound_by)
@@ -230,6 +235,14 @@ def test_config3_phases_rehearsed_on_cpu(tmp_path, monkeypatch):
     assert not chip_smoke.c3_world_is_full()
     assert ("config3", "sketch_packed", 2) in launched
     assert ("config3", "gather_rows", 1) in launched
+    # the 2 shards were merged as they streamed up (on the CPU through the
+    # merge's plain version), once per planned chunk: here one
+    assert ("config3", "merge_shards", 1) in launched
+    assert ("config3", "merge_count", 1) in launched
+    m = c3["merge"]
+    assert m["merge_shards"]["err"] == 0 and m["merge_count"]["err"] == 0
+    assert m["merge_shards"]["shape"].startswith("config3_P2_")
+    assert m["merge_shards"]["bound_by"] == "bytes"
     g = c3["gather"]
     assert g["err"] == 0 and g["shape"].endswith("B16384xL256")
     assert 0 < g["bound_ms"] < 0.05 and g["bound_by"] == "bytes"
