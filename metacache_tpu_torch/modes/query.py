@@ -2,8 +2,10 @@
 
 Counterpart of metacache_tpu/modes/query.py (main_mode_query +
 process_input_files, src/mode_query.cpp:55-455): the native reader
-feeding packed batches to the port's engine in dispatch windows (the
-Python reader for -align, which needs each read's sequence), -pairfiles
+feeding packed batches to the port's engine, each batch materialized,
+formatted and written in reading order on a writer thread while later
+ones are dispatched (the Python reader for -align, which needs each
+read's sequence, one batch at a time), -pairfiles
 or single-end input, -out / -splitout / stdout, clade exclusion
 (-exclude), -hits-per-seq, -align, the epilogue (hits per target,
 abundances, summary) and the interactive mode (no read files on the
@@ -18,13 +20,14 @@ stderr (setup_span).
 """
 from __future__ import annotations
 
+import codecs
 import contextlib
 import dataclasses
 import os
 import queue
 import sys
 import threading
-from typing import Dict, List, Optional, TextIO
+from typing import Dict, List, Optional, TextIO, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +46,13 @@ from ..query.engine import QueryEngine, encode_read_into, tables_from_database
 from ..query.stats import ClassificationStatistics
 from ..utils import ArgsParser, Timer
 
-#: batches per dispatch window: window k is formatted while k+1 computes
-WINDOW = 8
+#: batches dispatched and not yet written, at most: the device holds
+#: their results and match lists
+IN_FLIGHT = 16
+#: batches the reader thread parses ahead of the dispatcher, at most
+#: (~2.3 MB each at 16384 pairs): it reads on while the first batch
+#: loads its kernels
+READ_AHEAD = 8
 
 
 @contextlib.contextmanager
@@ -336,10 +344,131 @@ def ground_truth_node(db: Database, header: str) -> int:
     return 0
 
 
+class _Writer:
+    """Runs write(item) for each dispatched batch in dispatch order, on a
+    thread of its own (threaded=False: on the caller's thread, in put,
+    which makes the query driver sequential). reserve(), called before a
+    batch is dispatched, waits while IN_FLIGHT batches are not yet
+    written and raises what a write raised; close() waits for the writes
+    and raises it too, close(abort=True) drops the batches not yet
+    written."""
+
+    def __init__(self, write, threaded: bool = True):
+        self._write = write
+        self._error: Optional[BaseException] = None
+        self._abort = False
+        self._slots = threading.Semaphore(IN_FLIGHT)
+        self._q: "queue.Queue" = queue.Queue(maxsize=IN_FLIGHT)
+        self._thread = None
+        if threaded:
+            self._thread = threading.Thread(target=self._run,
+                                            name="metacache-writer",
+                                            daemon=True)
+            self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            self._one(item)
+            item = None   # the batch's device tensors go before its slot
+            self._slots.release()
+
+    def _one(self, item):
+        if self._error is not None or self._abort:
+            return
+        try:
+            self._write(item)
+        except BaseException as e:
+            self._error = e
+
+    def reserve(self):
+        self._slots.acquire()
+        if self._error is not None:
+            raise self._error
+
+    def put(self, item):
+        if self._thread is not None:
+            self._q.put(item)
+            return
+        self._one(item)
+        self._slots.release()
+
+    def close(self, abort: bool = False):
+        self._abort = abort
+        if self._thread is not None:
+            self._q.put(None)
+            self._thread.join()
+        if self._error is not None and not abort:
+            raise self._error
+
+
+class TaxonStrings:
+    """The mapping-line formatter's table of taxon strings: a row per
+    node seen so far, appended as new nodes appear (render: node ->
+    bytes), and each read's row found with numpy."""
+
+    def __init__(self, render):
+        self._render = render
+        self._row: Dict[int, int] = {}
+        self._strs = np.zeros(1 << 12, np.uint8)
+        self._off = np.zeros(1 << 8, np.int64)
+
+    def rows(self, best: np.ndarray, nodes: np.ndarray, inverse: np.ndarray,
+             mapped_only: bool) -> np.ndarray:
+        """Each read's row, from nodes, inverse = np.unique(best,
+        return_inverse=True); -1 (no line) for an unclassified read in
+        the mapped-only view."""
+        at = np.empty(len(nodes), np.int64)
+        for i, nd in enumerate(nodes.tolist()):
+            r = self._row.get(nd)
+            if r is None:
+                r = self._row[nd] = self._append(self._render(nd))
+            at[i] = r
+        sidx = at[inverse]
+        if mapped_only:
+            sidx[best == 0] = -1
+        return sidx
+
+    def _append(self, s: bytes) -> int:
+        r = len(self._row)
+        end = int(self._off[r])
+        if end + len(s) > len(self._strs):
+            self._strs = np.resize(self._strs,
+                                   max(2 * len(self._strs), end + len(s)))
+        if r + 2 > len(self._off):
+            self._off = np.resize(self._off, 2 * len(self._off))
+        self._strs[end:end + len(s)] = np.frombuffer(s, np.uint8)
+        self._off[r + 1] = end + len(s)
+        return r
+
+    def table(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(concatenated strings, [rows + 1] offsets)."""
+        rows = len(self._row)
+        return self._strs[:self._off[rows]], self._off[:rows + 1]
+
+
+def _binary_sink(out: TextIO):
+    """out's binary buffer, where ASCII bytes written there equal what
+    writing them as text would (a UTF-8 or ASCII text file), else
+    None."""
+    raw = getattr(out, "buffer", None)
+    try:
+        enc = codecs.lookup(out.encoding).name
+    except (AttributeError, TypeError, LookupError):
+        return None
+    return raw if raw is not None and enc in ("utf-8", "ascii") else None
+
+
 class QueryProcessor:
     """Streams read files through the engine, formats output and
     accumulates statistics / abundances / hits per target — the host half
     of the query."""
+
+    #: materialize, format and write batches on a writer thread (False:
+    #: on the dispatching thread, after each dispatch)
+    write_on_thread = True
 
     def __init__(self, db: Database, opt: QueryModeOptions,
                  engine: QueryEngine):
@@ -355,8 +484,8 @@ class QueryProcessor:
         # target node -> [(qid, [(win, hits), ...]), ...]
         self.target_matches: Dict[int, List] = {}
         self._seq_cache: Dict[str, List[str]] = {}
-        self._taxstr: Dict[int, int] = {}    # node -> index into the table
-        self._taxstr_list: List[bytes] = []
+        self._taxstr = TaxonStrings(lambda nd: out_mod.show_taxon_str(
+            db, opt.output, nd).encode())
 
     def _load_target_sequence(self, filename: str, index: int) -> str:
         """Record #index (1-based) of a reference file, each file read once
@@ -399,26 +528,30 @@ class QueryProcessor:
 
     def _exclusion_groups(self, headers):
         """Ground-truth nodes of a batch's reads and the exclusion group of
-        each ([batch_size] int64), or (None, None) without -exclude."""
+        each ([batch_size] int64), or (None, None) without -exclude.
+        headers() gives the reads' headers: a native batch decodes them
+        only when asked."""
         if not self.exclusion:
             return None, None
-        gts = [ground_truth_node(self.db, h) for h in headers]
+        gts = [ground_truth_node(self.db, h) for h in headers()]
         groups = np.zeros(self.opt.pipeline.batch_size, np.int64)
         for i, g in enumerate(gts):
             groups[i] = self.engine.exclusion_group_of(g)
         return gts, groups
 
     def _process_one_native(self, f1: str, f2: Optional[str], out: TextIO):
-        """Native reader -> engine, in dispatch windows: WINDOW batches are
-        dispatched before the previous window is materialized and
-        formatted, so host formatting overlaps device compute. A reader
-        thread parses ahead (the native parse releases the GIL)."""
+        """Native reader -> engine -> writer on three threads: a reader
+        thread parses ahead (the native parse releases the GIL), this
+        thread only dispatches (with -mesh under the MC_* launch, the
+        collectives stay here, in the same order on every rank), and a
+        writer thread materializes, formats and writes each batch in
+        dispatch order, so the device is fed while the host formats."""
         native.load_mcio()   # the native reader: raises if it cannot be built
         reader = native.NativeBatchReader(
             f1, f2, self.opt.pairing, self.opt.pipeline.batch_size,
             self.opt.pipeline.max_query_len,
             limit=self.opt.query_limit if self.opt.query_limit > 0 else -1)
-        q: "queue.Queue" = queue.Queue(maxsize=2)
+        q: "queue.Queue" = queue.Queue(maxsize=READ_AHEAD)
         stop = threading.Event()
 
         def _feed():
@@ -431,31 +564,29 @@ class QueryProcessor:
             except BaseException as e:   # raised again by the consumer
                 q.put(e)
 
-        feeder = threading.Thread(target=_feed, daemon=True)
+        feeder = threading.Thread(target=_feed, name="metacache-reader",
+                                  daemon=True)
         feeder.start()
         try:
-            windows: List[list] = []
-            pending: list = []
-            while True:
-                b = q.get()
-                if isinstance(b, BaseException):
-                    raise b
-                if b is None:
-                    break
-                gts, groups = self._exclusion_groups(b.headers)
-                dev = self.engine.dispatch_packed(
-                    b.packed1, b.ambig1, b.lens1, b.packed2, b.ambig2,
-                    b.lens2, exclude_groups=groups)
-                pending.append((dev, b.n, b, gts))
-                if len(pending) >= WINDOW:
-                    windows.append(pending)
-                    pending = []
-                    if len(windows) == 2:
-                        self._finalize_window(windows.pop(0), out)
-            if pending:
-                windows.append(pending)
-            for w in windows:
-                self._finalize_window(w, out)
+            writer = _Writer(lambda item: self._finalize_window([item], out),
+                             self.write_on_thread)
+            try:
+                while True:
+                    b = q.get()
+                    if isinstance(b, BaseException):
+                        raise b
+                    if b is None:
+                        break
+                    gts, groups = self._exclusion_groups(lambda: b.headers)
+                    writer.reserve()
+                    dev = self.engine.dispatch_packed(
+                        b.packed1, b.ambig1, b.lens1, b.packed2, b.ambig2,
+                        b.lens2, exclude_groups=groups)
+                    writer.put((dev, b.n, b, gts))
+            except BaseException:
+                writer.close(abort=True)
+                raise
+            writer.close()
         finally:
             # a consumer that raised must not leave the reader thread
             # blocked on a full queue
@@ -468,6 +599,8 @@ class QueryProcessor:
             feeder.join()
 
     def _finalize_window(self, window, out: TextIO):
+        """Materialize, format and write dispatched batches, in dispatch
+        order: [(device result, n, batch, ground truths), ...]."""
         results = self.engine.materialize_many(
             [(dev, n) for dev, n, _, _ in window])
         for res, (_, n, meta, gts) in zip(results, window):
@@ -508,7 +641,8 @@ class QueryProcessor:
             self._emit(c1, l1, c2, l2, meta, out)
 
     def _emit(self, c1, l1, c2, l2, meta, out: TextIO):
-        gts, groups = self._exclusion_groups([m[1] for m in meta])
+        gts, groups = self._exclusion_groups(
+            lambda: [m[1] for m in meta])
         res = self.engine.classify_batch(c1, l1, c2, l2, len(meta),
                                          exclude_groups=groups)
         self._postprocess(res, len(meta), meta, gts, out)
@@ -625,36 +759,36 @@ class QueryProcessor:
     def _postprocess_fast_native(self, res, n: int, batch, out: TextIO):
         """Default output: mapping lines built by ONE native pass over the
         raw header bytes and a table of taxon strings
-        (mcio_format_lines)."""
+        (mcio_format_lines); each read's taxon string and the taxon counts
+        from one np.unique of the batch."""
         o = self.opt.output
         best = res.best[:n]
-        if o.map_view_mode != out_mod.MapViewMode.NONE:
-            for nd in np.unique(best).tolist():
-                if nd not in self._taxstr:
-                    self._taxstr[nd] = len(self._taxstr_list)
-                    self._taxstr_list.append(out_mod.show_taxon_str(
-                        self.db, o, int(nd)).encode())
-            lens = np.fromiter((len(x) for x in self._taxstr_list),
-                               np.int64, len(self._taxstr_list))
-            soff = np.zeros(len(lens) + 1, np.int64)
-            np.cumsum(lens, out=soff[1:])
-            sidx = np.fromiter((self._taxstr[nd] for nd in best.tolist()),
-                               np.int64, n)
-            if o.map_view_mode == out_mod.MapViewMode.MAPPED_ONLY:
-                sidx = np.where(best == 0, np.int64(-1), sidx)
+        lines = o.map_view_mode != out_mod.MapViewMode.NONE
+        if lines or o.make_tax_counts:
+            nodes, inverse, counts = np.unique(best, return_inverse=True,
+                                               return_counts=True)
+        if lines:
+            sidx = self._taxstr.rows(
+                best, nodes, inverse,
+                o.map_view_mode == out_mod.MapViewMode.MAPPED_ONLY)
+            strs, soff = self._taxstr.table()
             buf = native.format_mapping_lines(
-                batch.hdr_buf, batch.hdr_off[:n + 1], sidx,
-                b"".join(self._taxstr_list), soff,
+                batch.hdr_buf, batch.hdr_off[:n + 1], sidx, strs, soff,
                 o.format.column.encode(),
                 batch.indices[:n] if o.show_query_ids else None)
             if buf is None:
                 raise RuntimeError("native mapping-line formatter failed")
-            out.write(buf.decode("utf-8", "replace"))
+            raw = _binary_sink(out) if buf.isascii() else None
+            if raw is not None:
+                out.flush()   # the text layer's lines go first
+                raw.write(buf)
+            else:
+                out.write(buf.decode("utf-8", "replace"))
         self.stats.assign_batch(res.best_rank[:n])
         if o.make_tax_counts:
-            nodes, cnts = np.unique(best[best != 0], return_counts=True)
-            for nd, ct in zip(nodes.tolist(), cnts.tolist()):
-                self.tax_counts[nd] = self.tax_counts.get(nd, 0) + ct
+            for nd, ct in zip(nodes.tolist(), counts.tolist()):
+                if nd:
+                    self.tax_counts[nd] = self.tax_counts.get(nd, 0) + ct
 
     def write_epilogue(self, out: TextIO, abundance_out: TextIO):
         o = self.opt.output

@@ -414,7 +414,7 @@ def open_chunk_arrays(path: str, count: int):
 
 
 def format_mapping_lines(hdr_buf: np.ndarray, hdr_off: np.ndarray,
-                         sidx: np.ndarray, strs: bytes,
+                         sidx: np.ndarray, strs,
                          soff: np.ndarray, col: bytes,
                          qids: Optional[np.ndarray] = None
                          ) -> Optional[bytes]:
@@ -428,7 +428,7 @@ def format_mapping_lines(hdr_buf: np.ndarray, hdr_off: np.ndarray,
     Returns the output bytes, or None if they overflow the buffer."""
     lib = load_mcio()
     n = len(sidx)
-    strs_arr = np.frombuffer(strs, np.uint8) if strs else \
+    strs_arr = np.frombuffer(strs, np.uint8) if len(strs) else \
         np.zeros(0, np.uint8)
     cap = int(hdr_off[-1]) + n * (len(col) * 2 + 34) + \
         int((soff[1:] - soff[:-1]).max() if len(soff) > 1 else 0) * n

@@ -107,7 +107,7 @@ class ShardedQueryEngine(EngineBase):
         order (the collectives pair them up)."""
         self._check_exclusion(exclude_groups)
         inputs = upload_batch(p1, a1, lens1, p2, a2, lens2, exclude_groups,
-                              self.distinct)
+                              self.distinct, self.staging)
         sketched = {d: (*self._sketch(fused), eg)
                     for d, (fused, eg) in inputs.items()}
         local = []
@@ -136,4 +136,4 @@ class ShardedQueryEngine(EngineBase):
                 loc["tgt"], loc["win"], self.target_window_k).to(home)
                 for loc, d in zip(local, self.devices))
             out["target_window_hits"] = distributed.all_reduce_sum(twh)
-        return fetch_summary(out)
+        return fetch_summary(out, self.summaries)

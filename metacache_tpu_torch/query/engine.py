@@ -4,12 +4,14 @@ Counterpart of metacache_tpu/query/engine.py (QueryEngine, EngineBase,
 BatchResult, compute_features, local_candidates, _query_batch_device).
 Per batch of packed reads:
 
-  host:   fuse the six packed arrays into one buffer (one host->device copy)
+  host:   fuse the six packed arrays into one reused pinned buffer (one
+          host->device copy)
   device: sketch (CUDA kernel, or its plain version on the CPU) -> lookup
           in the CSR feature table -> contiguous-window-range candidates
           (local_candidates) -> ranked-LCA vote (classify_tail)
   host:   one device->host copy of the [4, B] summary (best, best_rank,
-          match total, overflow); candidate tensors only on demand.
+          match total, overflow) into a reused pinned buffer; candidate
+          tensors only on demand.
 
 The sharded engine (parallel/sharding.py) runs the same stages, with
 local_candidates once per shard and a merge before the vote.
@@ -22,11 +24,12 @@ ops/lookup.py) and per-candidate window hit counts for -hits-per-seq
 It runs one tier at lmax = max_locations_per_query over the legacy wire;
 the JAX engine's direct tier, slim wire and packed summary give the same
 results and are not carried. Dispatch does not block on the device:
-QueryProcessor dispatches a window of batches before it materializes the
-previous one.
+QueryProcessor dispatches batches on one thread and materializes them on
+another.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,14 +104,14 @@ def compute_features(packed1, ambig1, lens1, packed2, ambig2, lens2, *,
     ], dim=1)
 
 
-def fuse_host_inputs(p1, a1, l1, p2, a2, l2) -> np.ndarray:
+def fuse_host_inputs(p1, a1, l1, p2, a2, l2, out=None) -> np.ndarray:
     """The six per-batch host arrays as ONE uint8 buffer [B, 2*(L/4+L/8+4)]
     (the JAX engine's legacy wire), so a batch costs one host->device
-    copy."""
+    copy; written into `out` when given."""
     B = p1.shape[0]
     l1b = np.ascontiguousarray(l1, dtype="<i4").view(np.uint8).reshape(B, 4)
     l2b = np.ascontiguousarray(l2, dtype="<i4").view(np.uint8).reshape(B, 4)
-    return np.concatenate([p1, a1, l1b, p2, a2, l2b], axis=1)
+    return np.concatenate([p1, a1, l1b, p2, a2, l2b], axis=1, out=out)
 
 
 def unfuse_device_inputs(fused: torch.Tensor, qlen: int):
@@ -182,35 +185,119 @@ def classify_tail(cand: Dict[str, torch.Tensor], total: torch.Tensor,
             "summary": torch.stack([best, best_rank, total, overflow])}
 
 
+class PinnedSlot:
+    """Pinned host buffers, by name, and one event per card, recorded
+    after the copies that read or fill them: a slot is written again only
+    after its events."""
+
+    def __init__(self):
+        self.buffers: Dict[str, torch.Tensor] = {}
+        self.events: Dict[torch.device, torch.cuda.Event] = {}
+
+    def buffer(self, name: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        b = self.buffers.get(name)
+        if b is None or tuple(b.shape) != tuple(shape) or b.dtype != dtype:
+            b = self.buffers[name] = torch.empty(shape, dtype=dtype,
+                                                 pin_memory=True)
+        return b
+
+    def record(self, devices: Sequence[torch.device]) -> None:
+        """Events on each card's current stream, after the copies queued
+        there."""
+        for d in devices:
+            ev = self.events.get(d)
+            if ev is None:
+                ev = self.events[d] = torch.cuda.Event()
+            with torch.cuda.device(d):
+                ev.record()
+
+    def done(self) -> bool:
+        return all(ev.query() for ev in self.events.values())
+
+    def wait(self) -> None:
+        for ev in self.events.values():
+            ev.synchronize()
+
+
+class HostStaging:
+    """The pinned slots a card's batch inputs are staged through, reused
+    in turn: the next slot is the oldest once its copies are done, else a
+    new one, up to MAX_SLOTS (then the oldest, after its copies)."""
+
+    MAX_SLOTS = 32
+
+    def __init__(self):
+        self._ring: "collections.deque[PinnedSlot]" = collections.deque()
+
+    def next(self) -> PinnedSlot:
+        ring = self._ring
+        if ring and (len(ring) >= self.MAX_SLOTS or ring[0].done()):
+            slot = ring.popleft()
+            slot.wait()
+        else:
+            slot = PinnedSlot()
+        ring.append(slot)
+        return slot
+
+
+class SummaryPool:
+    """Pinned slots the batch summaries come back to the host in: a slot
+    is taken by fetch_summary and given back by BatchResult once it has
+    read it (after the slot's event), so it may be taken and given on
+    different threads."""
+
+    def __init__(self):
+        self._free: "collections.deque[PinnedSlot]" = collections.deque()
+
+    def take(self) -> PinnedSlot:
+        try:
+            return self._free.pop()
+        except IndexError:
+            return PinnedSlot()
+
+    def give(self, slot: PinnedSlot) -> None:
+        self._free.append(slot)
+
+
 def upload_batch(p1, a1, lens1, p2, a2, lens2, exclude_groups,
-                 devices: Sequence[torch.device]):
+                 devices: Sequence[torch.device], staging: HostStaging):
     """The six per-batch host arrays fused into one buffer, and the
     optional [B] exclusion groups, copied to each device (one fused
-    host->device copy per device, from pinned memory on a card) ->
-    {device: (fused, exclude_groups or None)}."""
-    fused = torch.from_numpy(fuse_host_inputs(p1, a1, lens1, p2, a2, lens2))
-    eg = None if exclude_groups is None else \
-        torch.from_numpy(np.asarray(exclude_groups, np.int64))
-    if any(d.type == "cuda" for d in devices):
-        fused = fused.pin_memory()
-        eg = None if eg is None else eg.pin_memory()
-    return {d: (fused.to(d, non_blocking=True),
-                None if eg is None else eg.to(d, non_blocking=True))
-            for d in devices}
+    host->device copy per device; on a card, from a pinned slot of
+    `staging` the arrays are fused straight into) -> {device: (fused,
+    exclude_groups or None)}. The devices are all cards or all the CPU."""
+    if not any(d.type == "cuda" for d in devices):
+        fused = torch.from_numpy(fuse_host_inputs(p1, a1, lens1, p2, a2,
+                                                  lens2))
+        eg = None if exclude_groups is None else \
+            torch.from_numpy(np.asarray(exclude_groups, np.int64))
+        return {d: (fused, eg) for d in devices}
+    slot = staging.next()
+    width = sum(x.shape[1] for x in (p1, a1, p2, a2)) + 8
+    fused = slot.buffer("fused", (p1.shape[0], width), torch.uint8)
+    fuse_host_inputs(p1, a1, lens1, p2, a2, lens2, out=fused.numpy())
+    eg = None
+    if exclude_groups is not None:
+        eg = slot.buffer("groups", (len(exclude_groups),), torch.int64)
+        eg.numpy()[:] = exclude_groups
+    on = {d: (fused.to(d, non_blocking=True),
+              None if eg is None else eg.to(d, non_blocking=True))
+          for d in devices}
+    slot.record(devices)
+    return on
 
 
-def fetch_summary(out: Dict) -> Dict:
+def fetch_summary(out: Dict, pool: SummaryPool) -> Dict:
     """Queue the summary's device->host copy behind the batch without
-    waiting for it: into pinned memory, with an event recorded on the
-    summary's device that BatchResult waits for."""
+    waiting for it: into a pinned slot of `pool`, whose event, recorded
+    on the summary's device, BatchResult waits for."""
     summary = out.pop("summary")
     if summary.device.type == "cuda":
-        host = torch.empty(summary.shape, dtype=summary.dtype,
-                           pin_memory=True)
+        slot = pool.take()
+        host = slot.buffer("summary", summary.shape, summary.dtype)
         host.copy_(summary, non_blocking=True)
-        with torch.cuda.device(summary.device):
-            out["_event"] = torch.cuda.Event()
-            out["_event"].record()
+        slot.record([summary.device])
+        out["_summary_slot"] = (pool, slot)
         summary = host
     out["_summary_host"] = summary
     return out
@@ -225,10 +312,13 @@ class BatchResult:
 
     def __init__(self, n: int, out: Dict):
         self.n = n
-        ev = out.get("_event")
-        if ev is not None:
-            ev.synchronize()
+        held = out.pop("_summary_slot", None)
+        if held is not None:
+            held[1].wait()
         s = out["_summary_host"].numpy().astype(np.int32)
+        if held is not None:   # the slot is read: back to its pool
+            out["_summary_host"] = torch.from_numpy(s)
+            held[0].give(held[1])
         self.best, self.best_rank, self.match_total, self.match_overflow = s
         self._dev = dict(out["cand"])
         self._dev["target_window_hits"] = out.get("target_window_hits")
@@ -270,6 +360,8 @@ class EngineBase:
             pipeline.max_query_len, p.window_size, p.window_stride))
         self.lmax = pipeline.max_locations_per_query
         self.exclude_rank = Rank.NONE
+        self.staging = HostStaging()
+        self.summaries = SummaryPool()
 
     def update_runtime_thresholds(self, classify: ClassifyParams):
         """Adopt new hits_min / hits_diff_fraction (runtime scalars)."""
@@ -367,7 +459,8 @@ class QueryEngine(EngineBase):
         exclude_groups: optional host [B] clade per read (set_exclusion)."""
         self._check_exclusion(exclude_groups)
         fused, eg = upload_batch(p1, a1, lens1, p2, a2, lens2,
-                                 exclude_groups, [self.device])[self.device]
+                                 exclude_groups, [self.device],
+                                 self.staging)[self.device]
         features, l1, l2 = self._sketch(fused)
         loc = self._candidates(features, l1, l2, self.tables, eg)
         out = self._classify(loc["cand"], loc["total"], loc["overflow"],
@@ -375,7 +468,7 @@ class QueryEngine(EngineBase):
         if self.target_window_k:
             out["target_window_hits"] = target_window_hits(
                 loc["cand"], loc["tgt"], loc["win"], self.target_window_k)
-        return fetch_summary(out)
+        return fetch_summary(out, self.summaries)
 
 
 def _rank_code(rank) -> int:

@@ -271,3 +271,35 @@ def test_database_size_of_fused_shards(jax_world):
     assert one == two and one["max_bucket"] > 8
     with np.load(os.path.join(jax_world, "db1_0.npz")) as z:
         assert one["locations"] == int(z["offsets"][-1])
+
+
+def test_probe_records_the_threaded_query_driver(tmp_path):
+    """bench_torch.probe --record --trace on the realistic world's
+    rehearsal scale, 32 batches written on the query driver's writer
+    thread: the spans the traced trial checks are counted once per batch,
+    and the overflowing rows are recorded as many as the CLI counted, in
+    reading order, the rows a one-batch query records."""
+    wdir, scale = runner.make_world(str(tmp_path), "realistic", SPEC["seed"],
+                                    True)
+    db = runner.ensure_db(wdir, 1, "cpu")
+    reads = [os.path.join(wdir, r)
+             for r in SPEC_CELL["realistic-paired"]["reads"]]
+    n = runner.read_count("realistic", scale)
+    base = ["query", db] + reads + ["-pairfiles", "-lowest", "species",
+                                    "-max-locations-per-query", "64"]
+    rows = {}
+    for batch in ("16", "512"):
+        _, rec, _, err = runner.port(
+            base + ["-batch-size", batch, "-out",
+                    str(tmp_path / f"b{batch}.txt")],
+            "cpu", f"b{batch}", str(tmp_path),
+            ["--record", "--trace", str(tmp_path / f"b{batch}.trace.json")])
+        spans = rec["layers"]["spans"]
+        batches = -(-n // int(batch))
+        for s in ("dispatch", "materialize", "finalize_window"):
+            assert spans.get(s) == batches, spans
+        rows[batch] = rec["overflow_rows"]
+        assert 0 < len(rows[batch]) == runner.overflow_count(err)
+        assert rows[batch] == sorted(set(rows[batch]))
+        assert rows[batch][-1] < n
+    assert rows["16"] == rows["512"]
