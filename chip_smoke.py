@@ -7,14 +7,17 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
      versions. The three kernel libraries are built at once (one nvcc per
      source, in parallel).
-  2. kernels vs plain: the CUDA sketch kernel (csrc/sketch.cu) and the
-     CUDA gather kernel (csrc/gather.cu) held bit for bit against their
-     plain PyTorch versions on the card, at the main paths' shapes and on
-     edge cases; the shard merge streamed to the card (the two kernels of
-     csrc/merge.cu) against the same merge on the CPU (their plain
-     versions), table for table, on random tables of 2, 3 and 4 shards
-     with ties, in many chunks. Per kernel and shape: its device time (a CUDA graph of
-     20 calls, replayed: no host launch cost), its call time (CUDA events
+  2. kernels vs plain: the CUDA sketch kernel (csrc/sketch.cu), its
+     entry for the build's reference windows (whole ASCII records with
+     ambiguous bases, tail windows, records shorter than k and than a
+     window) and the CUDA gather kernel (csrc/gather.cu) held bit for bit
+     against their plain PyTorch versions on the card, at the main paths'
+     shapes and on edge cases; the shard merge streamed to the card (the
+     two kernels of csrc/merge.cu) against the same merge on the CPU
+     (their plain versions), table for table, on random tables of 2, 3
+     and 4 shards with ties, in many chunks. Per kernel and shape: its
+     device time (a CUDA graph of 20 calls, replayed: no host launch
+     cost), its call time (CUDA events
      over back-to-back calls from Python, host launch cost included), the
      plain version's call time, the one library call that computes the
      same function where there is one (table[idx] for the gather), the
@@ -22,15 +25,16 @@ Phases, each printed on its own line; any failure exits non-zero:
      counted from the inputs) and the share of it.
   3. config-2 (BASELINE config-2, the RefSeq-viral analogue of bench.py:
      15,000 genomes, 1,048,576 single-end 100 bp reads): the port's CLI
-     builds the database from the genomes and two bad files beside them
-     (a header-only NCBI assembly_summary.txt and a truncated FASTQ):
-     both are reported on `FAIL:` lines and left out, and the database is
-     the JAX package's (77,048,814 features, 86,957,916 locations, max
-     bucket 7). Then every read is queried on -device cuda. Checks that
-     both kernels ran on that path and that the classified fraction is
-     within 0.001 of the 0.9719 the JAX package recorded on the same
-     seeded world; the first 16,384 reads again on -device cpu give the
-     same mapping lines.
+     builds the database on the card (its card path: the window kernel
+     ran) from the genomes and two bad files beside them (a header-only
+     NCBI assembly_summary.txt and a truncated FASTQ): both are reported
+     on `FAIL:` lines and left out, the database is the JAX package's
+     (77,048,814 features, 86,957,916 locations, max bucket 7) and every
+     array equals the `-device cpu` (native host) build's. Then every
+     read is queried on -device cuda. Checks that both kernels ran on
+     that path and that the classified fraction is within 0.001 of the
+     0.9719 the JAX package recorded on the same seeded world; the first
+     16,384 reads again on -device cpu give the same mapping lines.
   4. the realistic paired-end world of bench.py (96 Mbp, 262,144 pairs,
      a repeat at the 254-location cap): GPU query, and the first 8,192
      pairs on the CPU give the same mapping lines.
@@ -41,9 +45,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      evaluation summaries (16,384 reads with -abundances -abundance-per
      species -precision -taxon-coverage -hits-per-seq): -device cuda
      writes the bytes -device cpu writes, summary blocks included.
-  7. modify: the first 14,500 genomes built natively, the last 500 added
-     by `modify` on cuda beside a malformed FASTQ (reported on a `FAIL:`
-     line on stderr, left out): every array equal to the one-shot native
+  7. modify: the first 14,500 genomes built on the card, the last 500
+     added by `modify` on cuda beside a malformed FASTQ (reported on a
+     `FAIL:` line on stderr, left out): every array equal to the one-shot
      build's (the source-file names aside); all reads queried against it.
   8. merge: 131,072 reads queried against the two partial databases,
      merged on cuda and on cpu: equal outputs.
@@ -67,21 +71,24 @@ Phases, each printed on its own line; any failure exits non-zero:
  14. config3: bench.py's config-3 world (200 targets x 25 Mbp in
      4-strain groups, a 5 kbp transposon five times per genome,
      1,048,400 pairs: 5,242 per genome of the nominal 1,048,576; ~5 GB of
-     FASTA), built in 2 shards (`build
-     -num-shards 2`, 5 Gbp) and queried fused on cuda: the shards are
+     FASTA), built on the card in 2 shards (`build -num-shards 2`, 5 Gbp,
+     through scripts/build_split.py's worker: the window kernel ran, no
+     shard spilled, no host sort ran) and queried fused on cuda: the shards are
      merged on the card as they stream up (never on the host), into the
      JAX package's 209,588,260 features, 707,655,761 locations and a
      fused max bucket of 508 (read from the engine's device tables); the
      classified fraction, over 1,048,576 as bench.py counts it, is within
      0.001 of its 0.9987; 128 sketch and 64 gather launches, one merge
      and one count launch per planned chunk; the first 8,192 pairs give
-     the same lines on the CPU. Prints the build's seconds, Gbp/s and
-     peak host RSS, the query's database load, table upload (the merge
-     included) and loop seconds (as the query prints them), its peak
-     device memory and overflow count; times the gather kernel on one
-     real batch of it and both merge kernels on its first chunk (staged
-     again from the shard files), each held bit for bit against its
-     plain version there. Needs ~25 GB
+     the same lines on the CPU. Prints the build's seconds, Gbp/s, peak
+     host RSS (sampled) and split (start, parse, sketch, each shard's
+     finalize, save, exit), the query's database load, table upload (the
+     merge included) and loop seconds (as the query prints them), its
+     peak device memory and overflow count; times the window kernel on
+     the build's first batch, the gather kernel on one real batch of the
+     query and both merge kernels on its first chunk (staged again from
+     the shard files), each held bit for bit against its plain version
+     there. Needs ~25 GB
      of disk and ~15 GB of host RAM at its peak; the world is removed
      after phase 15.
  15. config3_mesh: the same 2 shards with -mesh: every pair has its line,
@@ -215,8 +222,8 @@ TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
          "bound_ms", "bound_by", "share_of_bound")
 
 #: launches of each kernel, summed over the paths this run drove
-LAUNCHES = {"sketch_packed": 0, "gather_rows": 0, "merge_shards": 0,
-            "merge_count": 0}
+LAUNCHES = {"sketch_packed": 0, "sketch_windows": 0, "gather_rows": 0,
+            "merge_shards": 0, "merge_count": 0}
 
 
 class SmokeFailure(Exception):
@@ -244,10 +251,17 @@ def port_cli(args, log):
     return time.time() - t0
 
 
+def build_cli(args, log):
+    """`build` through the port's CLI in its own process, on DEVICE (the
+    card path on cuda)."""
+    return port_cli(args + ["-device", DEVICE], log)
+
+
 def kernel_counters():
     """Each kernel's wrapper module and the name of its launch count."""
     from metacache_tpu_torch.ops import gather_cuda, merge_cuda, sketch_cuda
     return {"sketch_packed": (sketch_cuda, "launches"),
+            "sketch_windows": (sketch_cuda, "window_launches"),
             "gather_rows": (gather_cuda, "launches"),
             "merge_shards": (merge_cuda, "merge_launches"),
             "merge_count": (merge_cuda, "count_launches")}
@@ -491,7 +505,53 @@ def phase_kernel(dev):
         check(err == 0, f"kernel differs from plain on one read (k={k})")
     say("kernel", edge_cases="ok", B=B, k="1,5,7,12,16",
         s="1,4,16,64,80,100,256", windows="128/113,300/200,1024/1000,40/7")
+    results["windows_edges"] = dict(err=window_edges(dev, rng))
     return results
+
+
+def window_edges(dev, rng):
+    """The build's window kernel vs its plain version on whole ASCII
+    records (upper and lower case, N runs, IUPAC codes) shorter than k,
+    than a window and longer, with tail windows, for several k, s,
+    window lengths and strides; returns the largest difference (0)."""
+    import numpy as np
+    import torch
+    from metacache_tpu_torch.ops import sketch_cuda
+    if not hasattr(sketch_cuda, "sketch_windows"):   # an older tree
+        say("kernel", window_edge_cases="none: no window kernel in "
+            "this tree")
+        return 0
+    from metacache_tpu_torch.db.build import _num_windows
+    from metacache_tpu_torch.ops.sketch import sketch_windows_reference
+    alphabet = np.frombuffer(b"ACGTacgtNRYKM", np.uint8)
+    lens = np.concatenate([[1, 5, 15, 16, 17, 90, 128, 129, 241, 1000],
+                           rng.integers(1, 20000, 60)]).astype(np.int64)
+    seq = alphabet[rng.choice(len(alphabet), int(lens.sum()),
+                              p=[.2] * 4 + [.03] * 4 + [.016] * 5)]
+    off = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=off[1:])
+    err = 0
+    for k, s, W, stride in ((16, 16, 128, 113), (16, 64, 128, 113),
+                            (9, 40, 128, 113), (1, 4, 128, 113),
+                            (16, 100, 300, 200), (12, 8, 40, 7),
+                            (16, 256, 1000, 900)):
+        nwin = _num_windows(lens, W, stride)
+        win_off = np.zeros(len(lens) + 1, np.int64)
+        np.cumsum(nwin, out=win_off[1:])
+        args = [torch.from_numpy(x).to(dev) for x in (seq, off, lens,
+                                                       win_off)]
+        kw = dict(n_windows=int(win_off[-1]), k=k, sketch_size=s,
+                  window_size=W, stride=stride)
+        got = sketch_cuda.sketch_windows(*args, **kw)
+        want = sketch_windows_reference(*args, **kw)
+        e = int((got != want).sum())
+        check(e == 0, f"window kernel differs from plain in {e} values "
+                      f"(k={k}, s={s}, window {W} / stride {stride})")
+        err = max(err, e)
+    say("kernel", window_edge_cases="ok", records=len(lens),
+        k="1,9,12,16", s="4,8,16,40,64,100,256",
+        windows="128/113,300/200,40/7,1000/900")
+    return err
 
 
 def gather_bound(table, used, n_valid, out):
@@ -723,10 +783,13 @@ def bad_inputs(c2):
 
 
 def phase_config2():
-    """Config-2 built from its genomes and two bad files beside them
-    (listed as files, so reads.fa and tax/ stay out): both reported, the
-    database the JAX package's; then every read queried."""
+    """Config-2 built on the card (driven here: the window kernel ran)
+    from its genomes and two bad files beside them (listed as files, so
+    reads.fa and tax/ stay out): both reported, the database the JAX
+    package's and, array for array, the -device cpu (native host) build's;
+    then every read queried."""
     import bench
+    from metacache_tpu_torch.db.database import shard_path
     from metacache_tpu_torch.modes.query import load_shard
     bench.C2 = os.path.join(WORK, "c2")
     t0 = time.time()
@@ -735,12 +798,26 @@ def phase_config2():
     c2 = bench.C2
     db = os.path.join(c2, "db")
     bad, want_fails = bad_inputs(c2)
-    log = os.path.join(WORK, "c2_build.log")
-    build_s = port_cli(["build", db, os.path.join(c2, "genomes.fa")] + bad
-                       + ["-taxonomy", os.path.join(c2, "tax")], log)
-    with open(log) as f:
-        fails = fail_lines(f.read())
+    inputs = [os.path.join(c2, "genomes.fa")] + bad \
+        + ["-taxonomy", os.path.join(c2, "tax")]
+    stdout, _, build_s, built = driven("config2_build", ("sketch_windows",),
+                                       ["build", db] + inputs)
+    fails = fail_lines(stdout)
     check(fails == want_fails, f"config-2 build: FAIL lines {fails}")
+    db_cpu = os.path.join(c2, "db_cpu")
+    cpu_log = os.path.join(WORK, "c2_build_cpu.log")
+    cpu_s = port_cli(["build", db_cpu] + inputs + ["-device", "cpu"], cpu_log)
+    with open(cpu_log) as f:
+        check(fail_lines(f.read()) == want_fails,
+              "config-2 -device cpu build: FAIL lines")
+    differ = differing_arrays(shard_path(db, 0), shard_path(db_cpu, 0))
+    os.remove(shard_path(db_cpu, 0))
+    say("config2", build_seconds=f"{build_s:.2f}",
+        build_cpu_seconds=f"{cpu_s:.2f}",
+        arrays_equal_cpu_build="yes" if not differ else ",".join(differ),
+        sketch_windows_launches=built["sketch_windows"])
+    check(not differ, f"config-2: arrays {differ} of the card build differ "
+                      "from the -device cpu build's")
     shard = load_shard(db, 0)
     size = database_size(shard)
     targets = len(shard.target_taxon_node)
@@ -758,7 +835,7 @@ def phase_config2():
     check(n == bench.C2_READS, f"config-2: {n} mapping lines")
     frac = classified_fraction(lines)
     qs = classify_seconds(out)
-    say("config2", reads=n, build_seconds=f"{build_s:.2f}",
+    say("config2", reads=n,
         query_wall_seconds=f"{wall:.2f}", reads_per_s_wall=f"{n / wall:.1f}",
         classify_seconds=f"{qs:.3f}", reads_per_s_classify=f"{n / qs:.1f}",
         classified_frac=f"{frac:.4f}", peak_device_bytes=peak,
@@ -777,9 +854,9 @@ def phase_realistic():
     say("realistic", world_seconds=f"{time.time() - t0:.1f}")
     big = bench.BIG
     db = os.path.join(big, "db")
-    build_s = port_cli(["build", db, os.path.join(big, "genomes.fa"),
-                        "-taxonomy", os.path.join(big, "tax")],
-                       os.path.join(WORK, "realistic_build.log"))
+    build_s = build_cli(["build", db, os.path.join(big, "genomes.fa"),
+                         "-taxonomy", os.path.join(big, "tax")],
+                        os.path.join(WORK, "realistic_build.log"))
     reads = [os.path.join(big, "reads_1.fa"), os.path.join(big, "reads_2.fa")]
     flags = ["-pairfiles", "-lowest", "species"] + PIPELINE_FLAGS
     out = os.path.join(WORK, "realistic_gpu.txt")
@@ -874,6 +951,16 @@ def npz_arrays(path):
         return {k: z[k] for k in z.files}
 
 
+def differing_arrays(path, other, skip=()):
+    """The names of the arrays of two shard files that differ (in type or
+    values; a name only one file has counts), those in `skip` aside."""
+    import numpy as np
+    a, b = npz_arrays(path), npz_arrays(other)
+    return sorted(k for k in set(a) | set(b) if k not in skip and not (
+        k in a and k in b and a[k].dtype == b[k].dtype
+        and np.array_equal(a[k], b[k])))
+
+
 def split_genomes(c2):
     """genomes.fa (one header and one sequence line per genome) -> the
     first genomes (A) and the last MODIFY_ADDED (B)."""
@@ -891,17 +978,16 @@ def split_genomes(c2):
 
 def phase_modify(c2):
     """Build A natively, add B with `modify` on cuda: every array of the
-    result equals the one-shot native build's (the two source-file arrays
-    excepted, which name genomes_a.fa / genomes_b.fa there), so the
-    cuda-sketched part equals what the CPU's native sketcher built; every
-    read is queried against it."""
-    import numpy as np
+    result equals the one-shot build's (the two source-file arrays
+    excepted, which name genomes_a.fa / genomes_b.fa there), so what
+    `modify` sketched equals what the build's window kernel sketched;
+    every read is queried against it."""
     from metacache_tpu_torch.db.database import shard_path
     tax = os.path.join(c2["dir"], "tax")
     fa, fb = split_genomes(c2)
     db_a = os.path.join(WORK, "db_a")
-    build_s = port_cli(["build", db_a, fa, "-taxonomy", tax],
-                       os.path.join(WORK, "db_a_build.log"))
+    build_s = build_cli(["build", db_a, fa, "-taxonomy", tax],
+                        os.path.join(WORK, "db_a_build.log"))
     db_ab = os.path.join(WORK, "db_ab")
     shutil.copyfile(shard_path(db_a, 0), shard_path(db_ab, 0))
     bad = os.path.join(WORK, "modify_malformed.fq")
@@ -915,13 +1001,8 @@ def phase_modify(c2):
         "ACGTACGTAC"
     check(fail_lines(stderr) == [want_fail],
           f"modify: FAIL lines {fail_lines(stderr)}")
-    got = npz_arrays(shard_path(db_ab, 0))
-    oneshot = npz_arrays(shard_path(c2["db"], 0))
-    check(sorted(got) == sorted(oneshot), "modify: array names differ")
-    differ = [k for k in oneshot if k not in MODIFY_SOURCE_ARRAYS
-              and not (got[k].dtype == oneshot[k].dtype
-                       and np.array_equal(got[k], oneshot[k]))]
-    del got, oneshot
+    differ = differing_arrays(shard_path(db_ab, 0), shard_path(c2["db"], 0),
+                              MODIFY_SOURCE_ARRAYS)
     say("modify", build_a_seconds=f"{build_s:.2f}",
         modify_gpu_seconds=f"{wall:.2f}",
         fail_lines=len(fail_lines(stderr)),
@@ -953,8 +1034,8 @@ def phase_merge(c2, db_a, fb):
     build of B, merge the two result files on cuda and on cpu."""
     tax = os.path.join(c2["dir"], "tax")
     db_b = os.path.join(WORK, "db_b")
-    port_cli(["build", db_b, fb, "-taxonomy", tax],
-             os.path.join(WORK, "db_b_build.log"))
+    build_cli(["build", db_b, fb, "-taxonomy", tax],
+              os.path.join(WORK, "db_b_build.log"))
     flags = ["-tophits", "-queryids", "-lowest", "species",
              "-query-limit", str(MERGE_READS)] + PIPELINE_FLAGS
     parts = []
@@ -1036,9 +1117,9 @@ def phase_mesh(c2):
     the shards on the card(s), sketched once per card, merged; the lines
     equal the fused query's (config-2 never truncates a match list)."""
     db = os.path.join(c2["dir"], f"db{MESH_SHARDS}")
-    build_s = port_cli(["build", db, os.path.join(c2["dir"], "genomes.fa"),
-                        "-taxonomy", os.path.join(c2["dir"], "tax"),
-                        "-num-shards", str(MESH_SHARDS)],
+    build_s = build_cli(["build", db, os.path.join(c2["dir"], "genomes.fa"),
+                         "-taxonomy", os.path.join(c2["dir"], "tax"),
+                         "-num-shards", str(MESH_SHARDS)],
                        os.path.join(WORK, "mesh_build.log"))
     out = os.path.join(WORK, "c2_mesh_gpu.txt")
     lines, wall, counts, peak, where = mesh_query("mesh", db, c2, out)
@@ -1118,9 +1199,9 @@ def launch_ranks(tag, args):
 
 
 def rank_worker(counts_path, args):
-    """The CLI in this process (one rank of launch_ranks, or a run of its
-    own in worker_cli), then its kernel launch counts and its peak host
-    RSS in MB (utils/memory.py) to counts_path."""
+    """The CLI in this process (one rank of launch_ranks), then its kernel
+    launch counts and its peak host RSS in MB (utils/memory.py) to
+    counts_path."""
     sys.path.insert(0, REPO)
     from metacache_tpu_torch import cli
     from metacache_tpu_torch.utils.memory import vm_peak_mb
@@ -1131,20 +1212,23 @@ def rank_worker(counts_path, args):
     return rc
 
 
-def worker_cli(tag, args):
-    """The port's CLI in a process of its own (this script's rank worker,
-    no process group) -> (wall seconds, its launch counts and peak host
-    RSS)."""
+def split_build(tag, args):
+    """`build` in a process of its own through scripts/build_split.py's
+    worker: the CLI with its steps timed, its threads and host RSS
+    sampled and each kernel's launch count set to 0 before it -> (wall
+    seconds, the worker's record)."""
     path = os.path.join(WORK, f"{tag}.json")
     t0 = time.time()
     with open(os.path.join(WORK, f"{tag}.log"), "w") as log:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--rank-worker", path] + args
+        r = subprocess.run([sys.executable,
+                            os.path.join(REPO, "scripts", "build_split.py"),
+                            "--worker", path, REPO, repr(t0)] + args
                            + ["-device", DEVICE], cwd=REPO, stdout=log,
                            stderr=subprocess.STDOUT, timeout=900)
+    wall = time.time() - t0
     check(r.returncode == 0, f"{' '.join(args[:2])} failed, see {tag}.log")
     with open(path) as f:
-        return time.time() - t0, json.load(f)
+        return wall, json.load(f)
 
 
 def phase_distributed(c2, mesh_db):
@@ -1152,22 +1236,19 @@ def phase_distributed(c2, mesh_db):
     are two or more): (a) build the MESH_SHARDS shards, rank r writing
     s % 2 == r, equal to the single-process build's; (b) query -mesh,
     rank 0's lines equal the fused query's."""
-    import numpy as np
     from metacache_tpu_torch.db.database import shard_path
     db = os.path.join(c2["dir"], "dist_db")
-    _, build_s, backend = launch_ranks("dist_build", [
+    built, build_s, backend = launch_ranks("dist_build", [
         "build", db, os.path.join(c2["dir"], "genomes.fa"), "-taxonomy",
         os.path.join(c2["dir"], "tax"), "-num-shards", str(MESH_SHARDS)])
+    for r, cnt in enumerate(built):
+        LAUNCHES["sketch_windows"] += cnt["sketch_windows"]
+        check_launched(f"distributed build rank {r}", "sketch_windows",
+                       cnt["sketch_windows"])
     for s in range(MESH_SHARDS):
-        got = npz_arrays(shard_path(db, s))
-        want = npz_arrays(shard_path(mesh_db, s))
-        check(sorted(got) == sorted(want), f"distributed: shard {s} arrays")
-        for k in want:
-            check(got[k].dtype == want[k].dtype
-                  and np.array_equal(got[k], want[k]),
-                  f"distributed: shard {s} array {k} differs from the "
-                  "single-process build's")
-        del got, want
+        differ = differing_arrays(shard_path(db, s), shard_path(mesh_db, s))
+        check(not differ, f"distributed: shard {s} arrays {differ} differ "
+                          "from the single-process build's")
     out = os.path.join(WORK, "c2_dist_gpu.txt")
     counts, query_s, _ = launch_ranks("dist_query", [
         "query", db] + c2["reads"] + c2["flags"] + [
@@ -1195,10 +1276,11 @@ def phase_realistic_mesh(big):
     list, so lines may differ from the fused query's on the reads that
     overflow: that count is printed, not checked."""
     db = os.path.join(big["dir"], "db2")
-    build_s = port_cli(["build", db, os.path.join(big["dir"], "genomes.fa"),
-                        "-taxonomy", os.path.join(big["dir"], "tax"),
-                        "-num-shards", "2"],
-                       os.path.join(WORK, "realistic_mesh_build.log"))
+    build_s = build_cli(["build", db,
+                         os.path.join(big["dir"], "genomes.fa"),
+                         "-taxonomy", os.path.join(big["dir"], "tax"),
+                         "-num-shards", "2"],
+                        os.path.join(WORK, "realistic_mesh_build.log"))
     out = os.path.join(WORK, "realistic_mesh_gpu.txt")
     lines, wall, counts, peak, where = mesh_query("realistic_mesh", db, big,
                                                   out)
@@ -1304,14 +1386,29 @@ def phase_config3():
     c3 = bench.C3
     db = os.path.join(c3, "db")
     gbp = bench.C3_BASES * bench.C3_VARIANTS * bench.C3_GLEN / 1e9
-    build_s, built = worker_cli("c3_build", [
-        "build", db, os.path.join(c3, "genomes.fa"), "-taxonomy",
-        os.path.join(c3, "tax"), "-num-shards", str(C3_SHARDS)])
-    rss = built["peak_rss_mb"]
+    genomes = os.path.join(c3, "genomes.fa")
+    build_s, built = split_build("c3_build", [
+        "build", db, genomes, "-taxonomy", os.path.join(c3, "tax"),
+        "-num-shards", str(C3_SHARDS)])
+    series = built["series"]
     say("config3", gbp=gbp, build_seconds=f"{build_s:.2f}",
         build_gbp_per_s=f"{gbp / build_s:.5f}",
-        build_peak_rss_mb="not_measured" if rss is None else f"{rss:.1f}",
+        build_peak_rss_mb=f"{built['peak_host_rss_mb']:.1f}",
+        build_peak_rss_at_s=f"{built['peak_host_rss_at_s']:.3f}",
+        build_start_s=f"{built['start_s']:.3f}",
+        build_cli_s=f"{built['cli_s']:.3f}",
+        build_exit_s=f"{build_s - built['start_s'] - built['cli_s']:.3f}",
+        **{f"build_{k}_s": f"{v['total_s']:.3f}/{v['n']}"
+           for k, v in series.items()},
         disk_free_gb=f"{shutil.disk_usage(WORK).free / 1e9:.1f}")
+    windows = built["launches"]["sketch_cuda.window_launches"]
+    LAUNCHES["sketch_windows"] += windows
+    check_launched("config3 build", "sketch_windows", windows)
+    host = [k for k in ("sketch_pass", "host_sort", "merge_chunks", "spill")
+            if k in series]
+    check(DEVICE != "cuda" or not host,
+          f"config-3 build: {host} ran on the host (no shard should leave "
+          "the card)")
 
     reads = [os.path.join(c3, "reads_1.fa"), os.path.join(c3, "reads_2.fa")]
     flags = ["-pairfiles", "-lowest", "species"] + PIPELINE_FLAGS
@@ -1384,7 +1481,89 @@ def phase_config3():
     batch.clear()
     merge = merge_at(shards.shard_features(), plans[0][0])
     return dict(db=db, dir=c3, reads=reads, flags=flags, out=out,
-                gather=gather, merge=merge)
+                gather=gather, merge=merge, windows=windows_at(genomes))
+
+
+def window_batch(genomes, shard=0):
+    """The card build's first batch of `genomes` (native.RecordStream into
+    a buffer of db/build.py's BATCH_BYTES), cut to the records of `shard`
+    as CardBuild.add_batch cuts it: (seq, rec_off, rec_len, win_off)."""
+    import numpy as np
+    from metacache_tpu_torch import native
+    from metacache_tpu_torch.config import SketchParams
+    from metacache_tpu_torch.db import build as build_mod
+    p = SketchParams()
+    stream = native.RecordStream(genomes)
+    buf = np.empty(build_mod.BATCH_BYTES, np.uint8)
+    while True:
+        try:
+            batch = stream.next_batch(buf)
+            break
+        except native.RecordTooLarge as e:
+            buf = np.empty(e.need, np.uint8)
+    stream.close()
+    mine = np.arange(len(batch.lens)) % C3_SHARDS == shard
+    nwin = build_mod._num_windows(batch.lens[mine], p.window_size,
+                                  p.window_stride)
+    win_off = np.zeros(len(nwin) + 1, np.int64)
+    np.cumsum(nwin, out=win_off[1:])
+    return (buf[:batch.nbytes], batch.offsets[mine], batch.lens[mine],
+            win_off)
+
+
+def window_bound(seq, rec_off, rec_len, win_off, out, k, W, stride):
+    """The window sketch's bound on these inputs: the records' bytes and
+    the small arrays read once, the sketches written once; its operations
+    counted as sketch_bound counts them (every k-mer start of a window,
+    every valid k-mer, from the data: a start is valid when none of the
+    k characters from it is ambiguous)."""
+    import numpy as np
+    from metacache_tpu_torch.ops.encode import AMBIG_CODE, CHAR_LUT
+    amb = np.zeros(len(seq) + 1, np.int64)
+    np.cumsum(CHAR_LUT[seq] == AMBIG_CODE, out=amb[1:])
+    ok = np.zeros(len(seq) + 1, np.int64)   # valid k-mer starts before i
+    np.cumsum(amb[k:] == amb[:-k], out=ok[1:len(seq) - k + 2])
+    ok[len(seq) - k + 2:] = ok[len(seq) - k + 1]
+    rec = np.repeat(np.arange(len(rec_len)), np.diff(win_off))
+    start = (np.arange(win_off[-1]) - win_off[:-1][rec]) * stride
+    wlen = np.minimum(rec_len[rec] - start, W)
+    first = rec_off[rec] + start
+    n = np.maximum(wlen - k + 1, 0)
+    kmers = int((ok[first + n] - ok[first]).sum())
+    nbytes = int(rec_len.sum()) + 8 * (2 * len(rec_len) + len(win_off)) \
+        + out.numel() * out.element_size()
+    per_kmer = SKETCH_OPS_PER_KMER + (SKETCH_OPS_SHORT_K if k < 16 else 0)
+    return bound(nbytes, SKETCH_OPS_PER_START * int(n.sum())
+                 + per_kmer * kmers)
+
+
+def windows_at(genomes):
+    """The window kernel on the config-3 build's first batch (its first
+    shard's records, a 25 Mbp genome): bit-equal to its plain version on
+    the card, and timed."""
+    import torch
+    from metacache_tpu_torch.config import SketchParams
+    from metacache_tpu_torch.ops import sketch_cuda
+    from metacache_tpu_torch.ops.sketch import sketch_windows_reference
+    p = SketchParams()
+    host = window_batch(genomes)
+    args = [torch.from_numpy(x).to(DEVICE) for x in host]
+    kw = dict(n_windows=int(host[3][-1]), k=p.kmer_size,
+              sketch_size=p.sketch_size, window_size=p.window_size,
+              stride=p.window_stride)
+    got = sketch_cuda.sketch_windows(*args, **kw)
+    want = sketch_windows_reference(*args, **kw)
+    err = int((got.long() & 0xFFFFFFFF).sub_(want.long() & 0xFFFFFFFF)
+              .abs_().max())
+    check(err == 0, "window kernel differs from plain (config-3 batch)")
+    name = f"config3_R{len(host[1])}_bases{int(host[2].sum())}" \
+        f"_windows{kw['n_windows']}"
+    res = timed(f"sketch_windows_{name}",
+                lambda: sketch_cuda.sketch_windows(*args, **kw),
+                lambda: sketch_windows_reference(*args, **kw), None,
+                *window_bound(*host, got, p.kmer_size, p.window_size,
+                              p.window_stride))
+    return dict(res, err=err, shape=name)
 
 
 def merge_bound(chunk):
@@ -1530,7 +1709,7 @@ def use_repo_tests_package():
     sys.modules["tests"] = pkg
 
 
-def kernels_json(sketch, gather, merge):
+def kernels_json(sketch, gather, merge, windows):
     cell = sketch["cells"]
     c2 = gather["config2"]
     c3 = gather["config3"]
@@ -1538,8 +1717,18 @@ def kernels_json(sketch, gather, merge):
         name="sketch_packed", route="cuda",
         source="metacache_tpu_torch/csrc/sketch.cu", replaces=PALLAS_SKETCH,
         launches=LAUNCHES["sketch_packed"],
-        max_abs_err=max(r["err"] for r in sketch.values()),
+        max_abs_err=max(r["err"] for n, r in sketch.items()
+                        if n != "windows_edges"),
         shape=cell["shape"], **{k: cell[k] for k in TIMES})]
+    # the build's reference-window sketch: the same per-window function
+    # as the TPU kernel, on whole records; timed on the config-3 build's
+    # first batch
+    rows.append(dict(
+        name="sketch_windows", route="cuda",
+        source="metacache_tpu_torch/csrc/sketch.cu", replaces=PALLAS_SKETCH,
+        launches=LAUNCHES["sketch_windows"],
+        max_abs_err=max(windows["err"], sketch["windows_edges"]["err"]),
+        shape=windows["shape"], **{k: windows[k] for k in TIMES}))
     # one kernel replaces both probes (k2's row-and-lane layout has no
     # counterpart on Hopper); its times at config-2's lookup shape, at
     # k1's own shape under k1_*, and on a real config-3 batch under
@@ -1647,7 +1836,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps(kernels_json(sketch, gather, merge)), flush=True)
+    print(json.dumps(kernels_json(sketch, gather, merge, c3["windows"])),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,23 +1,33 @@
 """Database build: FASTA/FASTQ genomes -> sketches -> feature table.
 
 Counterpart of metacache_tpu/db/build.py (add_to_database,
-src/mode_build.cpp:559-843). Two paths, as in the JAX build:
-  * the native C++ pass (libmcio: mcio_sketch_file, or
-    mcio_sketch_file_spill for large files) parses and sketches a whole
-    file; its sketches are bit-identical to the device sketch;
-  * the WindowBatcher: records parsed in Python, their windows packed into
-    fixed-shape batches and sketched on the device by the port's sketch
-    (the CUDA kernel on `cuda`, its plain version on the CPU). It takes
-    the files the native pass cannot number (an empty record or a repeated
-    sequence id: those records are skipped and the rest renumbered) and
-    every file when the sketch size exceeds the native sketcher's 64.
-Triples go to the JAX package's external sorter, in the JAX build's order,
-so the shard files are the JAX package's, array for array.
+src/mode_build.cpp:559-843). `-device` picks the path of a file whose
+records can be numbered up front (no empty record, no repeated sequence
+id) at a sketch size of at most 64:
+  * cuda, the card path (build_shards_on_card): the native record stream
+    (native.RecordStream) parses the file into batches of whole records,
+    each batch goes up through a pinned buffer, every window of it is
+    sketched on the card (ops/sketch_cuda.py::sketch_windows) and its
+    triples are appended to the shard's DeviceTripleStore
+    (db/device_store.py), which sorts them on the card: into the shard's
+    table at the end, or into chunk files when the store's device budget
+    is reached;
+  * cpu, the host path: the native C++ pass (libmcio: mcio_sketch_file,
+    or mcio_sketch_file_spill for large files, which sorts 32 M-triple
+    chunks on one thread) parses and sketches the file; its triples go to
+    the external sorter (ChunkedTripleSorter), the JAX build's own path.
+Both sketch bit-identically. Every other file takes the WindowBatcher
+on `-device` (the card, or the CPU): records parsed in Python (empty
+records and repeated ids skipped, the rest renumbered), their windows
+packed into fixed-shape batches and sketched by the port's sketch
+(sketch_packed). Triples reach each shard's sorter or store in the JAX
+build's order, so the shard files are the JAX package's, array for
+array, on either device.
 
 A file in no known format or with a malformed record is reported on
 stdout as `FAIL: <path>: <error>` and left out, as the JAX build (and
-mode_build.cpp:630-643) does: the whole file on the native paths, the
-records after the bad one on the WindowBatcher path.
+mode_build.cpp:630-643) does: the whole file on the native and card
+paths, the records after the bad one on the WindowBatcher path.
 
 Differences from the JAX build, on purpose:
   * if libmcio cannot load, the build raises (no all-Python build);
@@ -27,9 +37,11 @@ Differences from the JAX build, on purpose:
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import shutil
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,8 +53,11 @@ from ..config import FEATURE_SENTINEL, BuildParams, SketchParams
 from ..device import resolve_device
 from ..io import sequence_io, taxonomy_io
 from ..ops import encode
-from ..ops.sketch_cuda import sketch_packed
+from ..ops.sketch_cuda import sketch_packed, sketch_windows
+from ..parallel import distributed
 from .database import Database
+from .device_store import (FINALIZE_BYTES, STORE_BYTES, DeviceTripleStore,
+                           Staging)
 from .feature_table import ChunkedTripleSorter, FeatureTable
 from .taxonomy import NONE_TAXID, Rank, Taxonomy, rank_from_name
 
@@ -60,6 +75,14 @@ CHUNK_TRIPLES = 32 << 20
 
 #: accession -> taxid mapping files read from the inputs' directories
 SEQUENCE_ID_MAPPINGS = ("assembly_summary.txt",)
+
+#: sequence bytes per batch of the card path's record stream (each of its
+#: two pinned buffers; a longer record gets a buffer of its own size)
+BATCH_BYTES = 64 << 20
+
+#: share of the card's free memory at the start of a build that its
+#: device triple stores may hold, with one shard's finalize on top
+DEVICE_SHARE = 0.5
 
 #: windows per device batch of the WindowBatcher (the JAX build's
 #: BUILD_WINDOW_BATCH: the flush points fix the order in which triples
@@ -167,8 +190,8 @@ class BuildOptions:
     reset_parents: bool = False
     # silent | moderate | verbose (io_options.h:32)
     info_level: str = "moderate"
-    # where the WindowBatcher path sketches (cuda | cpu); resolved only
-    # when a file takes that path
+    # cuda: the card path; cpu: the native host path (both sketch the
+    # WindowBatcher's files on this device)
     device: str = "cuda"
 
 
@@ -205,6 +228,12 @@ def resolve_parent_taxid(header: str, seq2taxid: Dict[str, int],
     return NONE_TAXID
 
 
+def _sequence_id(header: str) -> str:
+    """A record's sequence id: its accession, else its first word."""
+    return sequence_io.extract_accession_string(header) \
+        or header.split(" ")[0] or header
+
+
 def _native_ids(res, seen_names: set) -> Optional[List[str]]:
     """Sequence ids of a natively sketched file's records, or None if a
     record is empty or repeats an id: the native pass numbered the records
@@ -213,8 +242,7 @@ def _native_ids(res, seen_names: set) -> Optional[List[str]]:
     sids: List[str] = []
     in_file: set = set()
     for i, header in enumerate(res.headers):
-        sid = sequence_io.extract_accession_string(header) \
-            or header.split(" ")[0] or header
+        sid = _sequence_id(header)
         if res.seq_lens[i] == 0 or sid in seen_names or sid in in_file:
             return None
         sids.append(sid)
@@ -222,19 +250,20 @@ def _native_ids(res, seen_names: set) -> Optional[List[str]]:
     return sids
 
 
-def _register_targets(path: str, res, sids: List[str], taxonomy: Taxonomy,
-                      target_nodes: List[int], seen_names: set,
-                      seq2taxid: Dict[str, int], progress) -> None:
-    """Add one sequence-level taxon per record of a natively sketched file
-    (taxid -(t+1), src/sketch_database.h:149-150)."""
-    for i, (header, sid) in enumerate(zip(res.headers, sids)):
+def _register_targets(path: str, headers: List[str], windows, sids: List[str],
+                      taxonomy: Taxonomy, target_nodes: List[int],
+                      seen_names: set, seq2taxid: Dict[str, int],
+                      progress) -> None:
+    """Add one sequence-level taxon per record of a file the native or the
+    card path took (taxid -(t+1), src/sketch_database.h:149-150)."""
+    for i, (header, sid) in enumerate(zip(headers, sids)):
         seen_names.add(sid)
         tgt = len(target_nodes)
         parent = resolve_parent_taxid(header, seq2taxid, taxonomy)
         node = taxonomy.add_node(
             -(tgt + 1), parent if parent else NONE_TAXID, sid,
             Rank.SEQUENCE, source_filename=path, source_index=i + 1,
-            source_windows=int(res.seq_windows[i]))
+            source_windows=int(windows[i]))
         target_nodes.append(node)
         if progress:
             progress(path, tgt)
@@ -283,8 +312,8 @@ def _sketch_natively(path: str, p: SketchParams, num_shards: int,
             sel = owner == s
             if sel.any():
                 sorter.add(res.feat[sel], res.tgt[sel], res.win[sel])
-    _register_targets(path, res, sids, taxonomy, target_nodes, seen_names,
-                      seq2taxid, progress)
+    _register_targets(path, res.headers, res.seq_windows, sids, taxonomy,
+                      target_nodes, seen_names, seq2taxid, progress)
     return True
 
 
@@ -297,8 +326,7 @@ def sketch_records(path: str, batcher, taxonomy: Taxonomy,
     target t's shard, None for a shard that is not built (the target is
     numbered but not sketched)."""
     for rec in sequence_io.read_sequences(path):
-        sid = sequence_io.extract_accession_string(rec.header) \
-            or rec.header.split(" ")[0] or rec.header
+        sid = _sequence_id(rec.header)
         if not rec.data or sid in seen_names:
             continue
         seen_names.add(sid)
@@ -319,6 +347,185 @@ def sketch_records(path: str, batcher, taxonomy: Taxonomy,
             progress(path, tgt)
 
 
+def _num_windows(lens: np.ndarray, window: int, stride: int) -> np.ndarray:
+    """Windows of each sequence length, tail window included
+    (encode.window_starts)."""
+    lens = np.asarray(lens, np.int64)
+    full = np.maximum(lens - window, 0) // stride + 1
+    return np.where(lens <= window, 1, full + (full * stride < lens))
+
+
+class CardBuild:
+    """The card path: a DeviceTripleStore for each built shard, the record
+    stream's two pinned buffers and the thread that parses into them."""
+
+    def __init__(self, p: SketchParams, num_shards: int,
+                 shard_ids: Sequence[int], device: torch.device,
+                 store_triples: int, spill_dir, log=None):
+        self.p = p
+        self.num_shards = num_shards
+        self.device = device
+        self.cuda = device.type == "cuda"
+        staging = Staging(device)
+        self.stores = {s: DeviceTripleStore(s, device, store_triples,
+                                            spill_dir, staging, log)
+                       for s in shard_ids}
+        self.bufs = [self._buffer(BATCH_BYTES) for _ in range(2)]
+        self.copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self.parser = ThreadPoolExecutor(1)
+
+    def _buffer(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.cuda)
+
+    def _parse(self, stream: native.RecordStream, i: int):
+        """The next batch into buffer i (grown for a longer record)."""
+        while True:
+            try:
+                return stream.next_batch(self.bufs[i].numpy())
+            except native.RecordTooLarge as e:
+                self.bufs[i] = self._buffer(e.need)
+
+    def add_file(self, path: str, t0: int, seen_names: set):
+        """Stream one file into the stores. Returns (headers, sequence
+        ids, windows) of all its records, or None, having added nothing,
+        when a record is empty or repeats an id (the WindowBatcher path
+        takes the file); raises FormatError, having added nothing (its
+        chunk files deleted), when its content is bad. The parse of the
+        next batch overlaps this batch's upload and sketch."""
+        stream = native.RecordStream(path)
+        for st in self.stores.values():
+            st.mark()
+        headers: List[str] = []
+        sids: List[str] = []
+        lens: List[np.ndarray] = []
+        in_file: set = set()
+        numbered = True
+        pending = None
+        try:
+            pending = self.parser.submit(self._parse, stream, 0)
+            turn = 0
+            while True:
+                batch = pending.result()
+                pending = None
+                if batch is None:
+                    break
+                for header, n in zip(batch.headers, batch.lens):
+                    sid = _sequence_id(header)
+                    numbered = numbered and n > 0 \
+                        and sid not in seen_names and sid not in in_file
+                    in_file.add(sid)
+                    sids.append(sid)
+                if numbered:   # else only the rest of the parse is left
+                    seq = self.bufs[turn][:batch.nbytes]
+                    if self.cuda:
+                        seq = seq.to(self.device, non_blocking=True)
+                        self.copied[turn] = torch.cuda.Event()
+                        self.copied[turn].record()
+                    else:
+                        seq = seq.clone()
+                turn ^= 1
+                if self.copied[turn] is not None:
+                    self.copied[turn].synchronize()
+                pending = self.parser.submit(self._parse, stream, turn)
+                if numbered:
+                    self.add_batch(seq, batch, t0 + len(headers))
+                headers += batch.headers
+                lens.append(batch.lens)
+        except BaseException:
+            for st in self.stores.values():
+                st.rollback()
+            raise
+        finally:
+            if pending is not None:
+                try:
+                    pending.result()
+                except Exception:
+                    pass
+            stream.close()
+        for st in self.stores.values():
+            if numbered:
+                st.commit()
+            else:
+                st.rollback()
+        if not numbered:
+            return None
+        lens_all = np.concatenate(lens) if lens else np.zeros(0, np.int64)
+        return headers, sids, _num_windows(lens_all, self.p.window_size,
+                                           self.p.window_stride)
+
+    def add_batch(self, seq: torch.Tensor, batch: native.RecordBatch,
+                  t0: int) -> None:
+        """Sketch every window of the batch's records (targets t0, t0+1,
+        ...) on the device and append each shard's triples to its store,
+        in record, window, feature order."""
+        p = self.p
+        tgt = t0 + np.arange(len(batch.lens))
+        nwin = _num_windows(batch.lens, p.window_size, p.window_stride)
+        for s, store in self.stores.items():
+            mine = tgt % self.num_shards == s
+            if not mine.any():
+                continue
+            win_off = np.zeros(int(mine.sum()) + 1, np.int64)
+            np.cumsum(nwin[mine], out=win_off[1:])
+            host = dict(rec_off=batch.offsets[mine], rec_len=batch.lens[mine],
+                        win_off=win_off,
+                        win_tgt=np.repeat(tgt[mine], nwin[mine]).astype(
+                            np.int32),
+                        win_idx=(np.arange(win_off[-1])
+                                 - np.repeat(win_off[:-1], nwin[mine])
+                                 ).astype(np.int32))
+            d = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                 for k, v in host.items()}
+            sk = sketch_windows(seq, d["rec_off"], d["rec_len"],
+                                d["win_off"], n_windows=int(win_off[-1]),
+                                k=p.kmer_size,
+                                sketch_size=p.sketch_size,
+                                window_size=p.window_size,
+                                stride=p.window_stride)
+            valid = sk != -1
+            f = sk[valid]
+            counts = valid.sum(dim=1)
+            n = f.numel()
+            store.add(f, torch.repeat_interleave(d["win_tgt"], counts,
+                                                 output_size=n),
+                      torch.repeat_interleave(d["win_idx"], counts,
+                                              output_size=n))
+
+    def finalize(self, cap: int) -> Dict[int, FeatureTable]:
+        """Each store's table: those that never spilled built on the
+        device one after another, the spilled ones merged natively on host
+        threads meanwhile."""
+        fts: Dict[int, FeatureTable] = {}
+        spilled = [s for s, st in self.stores.items() if st.chunks]
+        with ThreadPoolExecutor(min(4, max(1, len(spilled)))) as pool:
+            merges = {}
+            for s in spilled:
+                self.stores[s].finalize(cap)
+                merges[s] = pool.submit(self.stores[s].merge_spilled, cap)
+            for s, st in self.stores.items():
+                if s not in merges:
+                    fts[s] = st.finalize(cap)
+            for s, fut in merges.items():
+                fts[s] = fut.result()
+        return {s: fts[s] for s in self.stores}
+
+    def close(self) -> None:
+        self.parser.shutdown()
+
+
+def store_budget(device: torch.device, n_stores: int) -> int:
+    """Triples each device store may hold: DEVICE_SHARE of the card's free
+    memory now, shared with the other ranks on this card, over the
+    stores and one shard's finalize; on the CPU, CHUNK_TRIPLES."""
+    if device.type != "cuda":
+        return CHUNK_TRIPLES
+    free, _ = torch.cuda.mem_get_info(device)
+    ranks_here = math.ceil(distributed.world_size()
+                           / torch.cuda.device_count())
+    return int(DEVICE_SHARE * free / ranks_here
+               / (STORE_BYTES * n_stores + FINALIZE_BYTES))
+
+
 def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
                           num_shards: int = 1,
                           shard_ids: Optional[Sequence[int]] = None,
@@ -327,11 +534,44 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
     (src/mode_build.cpp:1145-1175, :797-843). Target t belongs to shard
     t % num_shards; shard_ids are the shards to build (default: all), and
     only those get sorters and batchers. Every target is numbered either
-    way. Returns one Database per built shard, in shard_ids order."""
+    way. Returns one Database per built shard, in shard_ids order.
+    opt.device cuda takes the card path (raises without a card), cpu the
+    native host path."""
+    device = resolve_device(opt.device)
+    if device.type == "cuda":
+        return build_shards_on_card(infiles, opt, device, num_shards,
+                                    shard_ids, progress)
+    return _build_shards(infiles, opt, num_shards, shard_ids, progress,
+                         device, None)
+
+
+def build_shards_on_card(infiles: Sequence[str], opt: BuildOptions,
+                         device: torch.device, num_shards: int = 1,
+                         shard_ids: Optional[Sequence[int]] = None,
+                         progress=None,
+                         store_triples: Optional[int] = None
+                         ) -> List[Database]:
+    """The card path on `device` (the CPU runs its functions with the
+    kernels' plain versions). store_triples: each shard store's budget
+    (default store_budget)."""
+    shard_ids = list(range(num_shards)) if shard_ids is None \
+        else list(shard_ids)
+    if store_triples is None:
+        store_triples = store_budget(device, len(shard_ids))
+    return _build_shards(infiles, opt, num_shards, shard_ids, progress,
+                         device, store_triples)
+
+
+def _build_shards(infiles: Sequence[str], opt: BuildOptions,
+                  num_shards: int, shard_ids: Optional[Sequence[int]],
+                  progress, device: torch.device,
+                  store_triples: Optional[int]) -> List[Database]:
+    """Both paths: the card path's stores when store_triples is given,
+    else the host path's sorters."""
     shard_ids = list(range(num_shards)) if shard_ids is None \
         else list(shard_ids)
     p = opt.params.sketch
-    native.load_mcio()   # the native sketcher: raises if it cannot be built
+    native.load_mcio()   # the native library: raises if it cannot be built
 
     taxonomy = taxonomy_io.make_taxonomic_hierarchy(
         opt.taxonomy_nodes, opt.taxonomy_names, opt.taxonomy_merged) \
@@ -342,19 +582,6 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
     files = gather_input_files(infiles)
     seq2taxid = taxonomy_io.make_sequence_to_taxon_id_map(
         SEQUENCE_ID_MAPPINGS, files)
-    sorters = {s: ChunkedTripleSorter(chunk_triples=CHUNK_TRIPLES)
-               for s in shard_ids}
-    batchers: Dict[int, WindowBatcher] = {}
-
-    def batcher(tgt: int) -> Optional[WindowBatcher]:
-        s = tgt % num_shards
-        if s not in sorters:
-            return None
-        if s not in batchers:
-            batchers[s] = WindowBatcher(p, sorters[s],
-                                        resolve_device(opt.device))
-        return batchers[s]
-
     target_nodes: List[int] = []
     seen_names: set = set()
     spill: List[str] = []
@@ -364,12 +591,42 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
             spill.append(tempfile.mkdtemp(prefix="mc_spill_"))
         return spill[0]
 
+    card = None
+    if store_triples is not None:
+        card = CardBuild(p, num_shards, shard_ids, device, store_triples,
+                         spill_dir, print if opt.info_level == "verbose"
+                         else None)
+        sinks = card.stores
+    else:
+        sinks = {s: ChunkedTripleSorter(chunk_triples=CHUNK_TRIPLES)
+                 for s in shard_ids}
+    batchers: Dict[int, WindowBatcher] = {}
+
+    def batcher(tgt: int) -> Optional[WindowBatcher]:
+        s = tgt % num_shards
+        if s not in sinks:
+            return None
+        if s not in batchers:
+            batchers[s] = WindowBatcher(p, sinks[s], device)
+        return batchers[s]
+
+    def on_card(path: str) -> bool:
+        got = card.add_file(path, len(target_nodes), seen_names)
+        if got is None:
+            return False
+        headers, sids, windows = got
+        _register_targets(path, headers, windows, sids, taxonomy,
+                          target_nodes, seen_names, seq2taxid, progress)
+        return True
+
     try:
         for path in files:
             try:
-                if p.sketch_size <= NATIVE_MAX_SKETCH and _sketch_natively(
-                        path, p, num_shards, sorters, taxonomy, target_nodes,
-                        seen_names, seq2taxid, progress, spill_dir):
+                if p.sketch_size <= NATIVE_MAX_SKETCH and (
+                        on_card(path) if card else _sketch_natively(
+                            path, p, num_shards, sinks, taxonomy,
+                            target_nodes, seen_names, seq2taxid, progress,
+                            spill_dir)):
                     continue
                 sketch_records(path, batcher, taxonomy, target_nodes,
                                seen_names, seq2taxid, progress)
@@ -386,9 +643,17 @@ def build_database_shards(infiles: Sequence[str], opt: BuildOptions,
                                   reset_parents=opt.reset_parents,
                                   info_level=opt.info_level)
 
-        fts = {s: sorter.finalize(opt.params.max_locations_per_feature)
-               for s, sorter in sorters.items()}
+        cap = opt.params.max_locations_per_feature
+        if card:
+            fts = card.finalize(cap)
+        else:
+            # the shards' native merges at once, as the JAX build does
+            with ThreadPoolExecutor(min(4, len(sinks) or 1)) as pool:
+                fts = dict(zip(sinks, pool.map(
+                    lambda sorter: sorter.finalize(cap), sinks.values())))
     finally:
+        if card:
+            card.close()
         for d in spill:
             shutil.rmtree(d, ignore_errors=True)
 

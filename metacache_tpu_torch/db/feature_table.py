@@ -27,6 +27,7 @@ Semantics preserved from the reference:
 from __future__ import annotations
 
 import dataclasses
+import mmap
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +53,14 @@ class FeatureTable:
 
     def bucket_sizes(self) -> np.ndarray:
         return np.diff(self.offsets)
+
+    def release_pages(self) -> None:
+        """Drop the resident pages of the arrays that map a file (a built
+        table): they leave the process's resident set and are read from
+        the page cache again if touched."""
+        for a in (self.keys, self.offsets, self.loc_tgt, self.loc_win):
+            if isinstance(a.base, mmap.mmap):
+                a.base.madvise(mmap.MADV_DONTNEED)
 
     # ------------------------------------------------------------------ build
     @classmethod

@@ -5,8 +5,13 @@ Counterpart of metacache_tpu/modes/build.py on the port's build
 the inputs. Under the MC_* launch (parallel/distributed.py) with P ranks
 there are at least P shards, and rank r builds and writes the shards
 s % P == r, each rank in one pass (the reference's rank-gated build,
-mode_build.cpp:1079-1091). `-device cuda|cpu` (default cuda) is where
-files that take the WindowBatcher path are sketched.
+mode_build.cpp:1079-1091). `-device cuda|cpu` (default cuda) is where the
+database is built: on cuda the card path (db/build.py::
+build_shards_on_card: records parsed on the host, every window sketched
+and each shard's triples sorted on the card; it raises without a card),
+on cpu the native host path (parse, sketch and sort on the host, the JAX
+build's). Files that take the WindowBatcher path are sketched on that
+device either way; both paths write the same shard files.
 """
 from __future__ import annotations
 
@@ -112,6 +117,9 @@ def main_mode_build(args: ArgsParser) -> int:
     write_timer.start()
     for db in shard_dbs:
         path = db.save(dbfile)
+        # the table pages the write touched leave the resident set, so
+        # that the shards' tables are not resident at once
+        db.features.release_pages()
         if not silent:
             print(f"Writing database to file '{path}' ... done.")
     write_timer.stop()

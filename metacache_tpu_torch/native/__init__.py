@@ -127,6 +127,17 @@ def load_mcio():
         lib.mcio_merge_chunks_csr.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_char_p, ctypes.c_void_p]
+        lib.mcio_rs_open.restype = ctypes.c_void_p
+        lib.mcio_rs_open.argtypes = [ctypes.c_char_p]
+        lib.mcio_rs_error.restype = ctypes.c_char_p
+        lib.mcio_rs_error.argtypes = [ctypes.c_void_p]
+        lib.mcio_rs_next.restype = ctypes.c_int64
+        lib.mcio_rs_next.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+        lib.mcio_rs_close.restype = None
+        lib.mcio_rs_close.argtypes = [ctypes.c_void_p]
         lib.mcio_format_lines.restype = ctypes.c_int64
         lib.mcio_format_lines.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -232,6 +243,98 @@ class NativeBatchReader:
     def close(self):
         if self.h is not None:
             self.lib.mcio_close(self.h)
+            self.h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class RecordBatch:
+    """Whole records of a file, as RecordStream.next_batch reads them:
+    their sequences packed one after another at the front of the caller's
+    buffer (record i at offsets[i], lens[i] bytes), and their headers."""
+
+    __slots__ = ("lens", "offsets", "headers")
+
+    def __init__(self, lens: np.ndarray, headers: List[str]):
+        self.lens = lens
+        self.offsets = np.zeros(len(lens), np.int64)
+        np.cumsum(lens[:-1], out=self.offsets[1:])
+        self.headers = headers
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.lens.sum())
+
+
+class RecordTooLarge(Exception):
+    """The next record does not fit an empty sequence buffer of the size
+    given: `need` bytes would."""
+
+    def __init__(self, need: int):
+        super().__init__(f"a record of {need} bytes")
+        self.need = need
+
+
+class RecordStream:
+    """The card build's parse of one FASTA/FASTQ file (mcio_rs_*): whole
+    records in batches that fill a caller's buffer, read with the reader
+    the native passes use, neither sketched nor sorted. Raises OSError if
+    the file can't be opened and sequence_io.FormatError when it is in no
+    known format or holds a malformed record (the native passes'
+    messages)."""
+
+    MAX_RECORDS = 1 << 16
+
+    def __init__(self, path: str):
+        self.lib = load_mcio()
+        self.h = self.lib.mcio_rs_open(path.encode())
+        if not self.h:
+            raise OSError(f"can't read file {path}")
+        self._lens = np.zeros(self.MAX_RECORDS, np.int64)
+        self._hdr = np.zeros(1 << 20, np.uint8)
+        self._hdr_off = np.zeros(self.MAX_RECORDS + 1, np.int64)
+        self._need = np.zeros(2, np.int64)
+        self._check(0)
+
+    def _check(self, n: int) -> None:
+        if n == -1 or (n == 0 and self.lib.mcio_rs_error(self.h)):
+            msg = self.lib.mcio_rs_error(self.h).decode()
+            self.close()
+            raise sequence_io.FormatError(msg)
+
+    def next_batch(self, seq: np.ndarray) -> Optional[RecordBatch]:
+        """The next records into the uint8 buffer `seq`, or None at the end
+        of the file; RecordTooLarge if the next record alone exceeds
+        `seq` (the record stays for the next call)."""
+        if self.h is None:
+            return None
+        while True:
+            n = self.lib.mcio_rs_next(
+                self.h, seq.ctypes.data, len(seq), self._lens.ctypes.data,
+                self.MAX_RECORDS, self._hdr.ctypes.data, len(self._hdr),
+                self._hdr_off.ctypes.data, self._need.ctypes.data)
+            if n != -2 or self._need[1] <= len(self._hdr):
+                break
+            self._hdr = np.zeros(int(self._need[1]), np.uint8)
+        if n == -2:
+            raise RecordTooLarge(int(self._need[0]))
+        self._check(n)
+        if n == 0:
+            self.close()
+            return None
+        hb = self._hdr[:self._hdr_off[n]].tobytes()
+        off = self._hdr_off
+        return RecordBatch(self._lens[:n].copy(), [
+            hb[off[i]:off[i + 1]].decode("utf-8", "replace")
+            for i in range(n)])
+
+    def close(self):
+        if self.h is not None:
+            self.lib.mcio_rs_close(self.h)
             self.h = None
 
     def __del__(self):

@@ -421,6 +421,86 @@ void mcio_close(void* vh) { delete (Handle*)vh; }
 
 namespace {
 
+// The card build's parse: whole records of one file, in batches that fit
+// the caller's buffers, with no sketching and no sorting on the host.
+struct RecordStream {
+    SeqReader rd;
+    Record rec;
+    bool pending = false;   // rec is read but not yet handed out
+    std::string error;
+};
+
+}  // namespace
+
+extern "C" {
+
+// nullptr if the file can't be opened; a file in no known format gives a
+// stream whose mcio_rs_error is set.
+void* mcio_rs_open(const char* path) {
+    RecordStream* s = new RecordStream();
+    if (!s->rd.open(path)) {
+        if (!s->rd.opened()) {
+            delete s;
+            return nullptr;
+        }
+        s->error = s->rd.error();
+    }
+    return s;
+}
+
+const char* mcio_rs_error(void* vs) {
+    return ((RecordStream*)vs)->error.c_str();
+}
+
+// The next records, whole, up to max_records: their sequence bytes as read
+// (lines joined) packed one after another into seq[seq_cap], lens[i] each
+// record's length, their headers into hdr[hdr_cap] with hdr_off[n+1]
+// prefix offsets. Returns the record count (0 at the end of the file), -1
+// on a malformed record (mcio_rs_error), or -2 when the next record alone
+// does not fit the empty buffers: need[0] / need[1] are then the sequence
+// and header bytes it takes, and the record is kept for the next call.
+int64_t mcio_rs_next(void* vs, uint8_t* seq, int64_t seq_cap, int64_t* lens,
+                     int64_t max_records, char* hdr, int64_t hdr_cap,
+                     int64_t* hdr_off, int64_t* need) {
+    RecordStream* s = (RecordStream*)vs;
+    if (!s->error.empty()) return -1;
+    int64_t n = 0, pos = 0;
+    hdr_off[0] = 0;
+    while (n < max_records) {
+        if (!s->pending) {
+            int st = s->rd.next(s->rec);
+            if (st < 0) {
+                s->error = s->rd.error() ? s->rd.error() : "read error";
+                return -1;
+            }
+            if (st == 0) break;
+            s->pending = true;
+        }
+        const int64_t L = (int64_t)s->rec.data.size();
+        const int64_t H = (int64_t)s->rec.header.size();
+        if (pos + L > seq_cap || hdr_off[n] + H > hdr_cap) {
+            if (n > 0) break;
+            need[0] = L;
+            need[1] = H;
+            return -2;
+        }
+        memcpy(seq + pos, s->rec.data.data(), (size_t)L);
+        memcpy(hdr + hdr_off[n], s->rec.header.data(), (size_t)H);
+        lens[n] = L;
+        pos += L;
+        hdr_off[n + 1] = hdr_off[n] + H;
+        s->pending = false;
+        ++n;
+    }
+    return n;
+}
+
+void mcio_rs_close(void* vs) { delete (RecordStream*)vs; }
+
+}  // extern "C"
+
+namespace {
+
 // ---------------------------------------------------------------------------
 // Native build sketcher: the host hot loop of database construction
 // (reference: add_all_window_sketches, src/sketch_database.h:1079-1097 +

@@ -101,7 +101,8 @@ def test_modify_skips_bad_file_as_jax(world):
     outs = []
     for cli, db, dev in ((jax_cli, "jmodbad", []),
                          (port_cli, "tmodbad", ["-device", "cpu"])):
-        r = cli(["build", db, "genomes/a.fa", "-taxonomy", "tax"], world)
+        r = cli(["build", db, "genomes/a.fa", "-taxonomy", "tax"] + dev,
+                world)
         assert r.returncode == 0, r.stderr
         r = cli(["modify", db, "genomes/assembly_summary.txt",
                  "genomes/b.fq", "genomes/c.fa"] + dev, world)
@@ -157,8 +158,8 @@ def test_spill_path_skips_bad_file_and_deletes_its_chunks(
     monkeypatch.setattr(os, "unlink", lambda p, *a, **k: (
         deleted.append(p), unlink(p, *a, **k))[1])
     monkeypatch.setattr(tbuild, "CHUNK_TRIPLES", chunk)
-    _spill_build(monkeypatch, world, tbuild, tbuild.BuildOptions(),
-                 SPILL_FILES, "tspill")
+    _spill_build(monkeypatch, world, tbuild,
+                 tbuild.BuildOptions(device="cpu"), SPILL_FILES, "tspill")
     assert _fail_lines(capsys.readouterr().out) == want == [BROKEN_FASTQ]
     # b.fq wrote chunks before its broken record; none is left
     left, gone = seen["genomes/b.fq"]
@@ -176,5 +177,6 @@ def test_spill_chunk_write_failure_ends_the_build(world, monkeypatch,
     monkeypatch.setattr(tbuild.tempfile, "mkdtemp", lambda prefix, **kw: (
         missing if prefix == "mc_spill_" else mkdtemp(prefix=prefix, **kw)))
     with pytest.raises(OSError, match="can't create spill chunk"):
-        _spill_build(monkeypatch, world, tbuild, tbuild.BuildOptions(),
-                     ["genomes/a.fa"], "tspillio")
+        _spill_build(monkeypatch, world, tbuild,
+                     tbuild.BuildOptions(device="cpu"), ["genomes/a.fa"],
+                     "tspillio")

@@ -64,8 +64,9 @@ def world(tmp_path_factory):
         r2.append((f"q{q}_NC_{q % 12:06d}.1 extra", b))
     mock.write_fasta(os.path.join(tmp, "reads_1.fa"), r1)
     mock.write_fastq(os.path.join(tmp, "reads_2.fq"), r2)
-    for cli, db in ((jax_cli, "jdb"), (port_cli, "tdb")):
-        r = cli(["build", db, fasta, "-taxonomy", "tax"], tmp)
+    for cli, db, dev in ((jax_cli, "jdb", []),
+                         (port_cli, "tdb", ["-device", "cpu"])):
+        r = cli(["build", db, fasta, "-taxonomy", "tax"] + dev, tmp)
         assert r.returncode == 0, r.stderr
     return tmp
 
@@ -78,9 +79,10 @@ def _npz(path):
 @pytest.mark.parametrize("shards", [1, 2])
 def test_build_shards_equal_jax(world, shards):
     tag = f"s{shards}"
-    for cli, db in ((jax_cli, "j" + tag), (port_cli, "t" + tag)):
+    for cli, db, dev in ((jax_cli, "j" + tag, []),
+                         (port_cli, "t" + tag, ["-device", "cpu"])):
         r = cli(["build", db, "genomes.fa", "-taxonomy", "tax",
-                 "-num-shards", str(shards)], world)
+                 "-num-shards", str(shards)] + dev, world)
         assert r.returncode == 0, r.stderr
     for s in range(shards):
         want = _npz(os.path.join(world, f"j{tag}_{s}.npz"))
@@ -163,13 +165,14 @@ import sys
 sys.modules["jax"] = None
 sys.modules["metacache_tpu"] = None
 from metacache_tpu_torch.cli import main
-rc = main(["build", "nojaxdb", "genomes.fa", "-taxonomy", "tax", "-silent"])
+rc = main(["build", "nojaxdb", "genomes.fa", "-taxonomy", "tax", "-silent",
+           "-device", "cpu"])
 assert rc == 0, rc
 rc = main(["query", "nojaxdb", "reads_1.fa", "reads_2.fq", "-pairfiles",
            "-lowest", "species", "-device", "cpu", "-out", "nojax.txt"])
 assert rc == 0, rc
 rc = main(["build", "nojaxdb2", "genomes.fa", "-taxonomy", "tax", "-silent",
-           "-num-shards", "2"])
+           "-num-shards", "2", "-device", "cpu"])
 assert rc == 0, rc
 rc = main(["query", "nojaxdb2", "reads_1.fa", "reads_2.fq", "-pairfiles",
            "-lowest", "species", "-device", "cpu", "-mesh", "-out",
@@ -225,15 +228,32 @@ def test_port_runs_without_jax(world):
         assert f.readline() == ">NC_777777.1|taxid|4242| extra\n"
 
 
+#: the blocks the port's help adds to the JAX CLI's pages
+PORT_ONLY_HELP = {("build",): """
+    -device cuda|cpu
+            where the database is built (default: cuda). cuda: each file is
+            parsed into batches of whole records, every window is sketched
+            on the card and each shard's entries are sorted there; a shard
+            whose entries outgrow its share of the card's memory is sorted
+            there in chunks, which are merged on the host. Fails without a
+            card. cpu: the native host build (parse, sketch and sort on the
+            host's cores). Both write the same database.
+"""}
+
+
 @pytest.mark.parametrize("topic", [[], ["build"], ["query"], ["modify"],
                                    ["info"], ["annotate"], ["merge"],
                                    ["nonsense"]],
                          ids=["quick", "build", "query", "modify", "info",
                               "annotate", "merge", "unknown"])
 def test_help_equals_jax(world, topic):
+    """The port's help pages are the JAX CLI's, with the port's own
+    options (PORT_ONLY_HELP) added."""
     rj = jax_cli(["help"] + topic, world)
     rt = port_cli(["help"] + topic, world)
-    assert (rt.returncode, rt.stdout, rt.stderr) == \
+    extra = PORT_ONLY_HELP.get(tuple(topic), "")
+    assert extra in rt.stdout
+    assert (rt.returncode, rt.stdout.replace(extra, "", 1), rt.stderr) == \
         (rj.returncode, rj.stdout, rj.stderr)
     assert len(rt.stdout.splitlines()) > 10 or topic == ["nonsense"]
 
@@ -268,7 +288,7 @@ def test_annotate_equals_jax(world):
 def db8(world):
     """The world's genomes in 8 shards, built by the port."""
     r = port_cli(["build", "tdb8", "genomes.fa", "-taxonomy", "tax",
-                  "-num-shards", "8"], world)
+                  "-num-shards", "8", "-device", "cpu"], world)
     assert r.returncode == 0, r.stderr
     return "tdb8"
 
@@ -430,7 +450,8 @@ def test_modify_equals_jax(world):
                      recs[8:] + [recs[2], ("NC_999999.1 empty", "")])
     for cli, db, extra in ((jax_cli, "jmod", []),
                            (port_cli, "tmod", ["-device", "cpu"])):
-        r = cli(["build", db, "part_a.fa", "-taxonomy", "tax"], world)
+        r = cli(["build", db, "part_a.fa", "-taxonomy", "tax"] + extra,
+                world)
         assert r.returncode == 0, r.stderr
         r = cli(["modify", db, "part_b.fa"] + extra, world)
         assert r.returncode == 0, r.stderr

@@ -1,6 +1,8 @@
-"""The CUDA kernels (metacache_tpu_torch/csrc/sketch.cu, csrc/gather.cu,
-csrc/merge.cu) against their plain PyTorch versions on the card, and the
-engine on the card (with and without clade exclusion and window hit
+"""The CUDA kernels (metacache_tpu_torch/csrc/sketch.cu: the read and the
+reference-window sketch, csrc/gather.cu, csrc/merge.cu) against their
+plain PyTorch versions on the card, the build's card path against its
+native host path (every array of every shard equal), and the engine on
+the card (with and without clade exclusion and window hit
 counts, fused over two shards merged on the card) against the engine on
 the CPU. Needs a CUDA card and nvcc; skips without a card.
 Tolerance: bit equality.
@@ -94,6 +96,110 @@ def test_kernel_matches_plain_large_sketch(dev, s):
     with pytest.raises(ValueError):
         sketch_cuda.sketch_packed(*args, k=16, sketch_size=257,
                                   window_size=128, starts=(0,))
+
+
+def ascii_records(seed, lens):
+    """Whole records of ASCII bases (upper and lower case, runs of N, IUPAC
+    codes) packed one after another, as the record stream reads them ->
+    (seq, rec_off, rec_len) host arrays."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGTacgtNRYKM", np.uint8)
+    p = np.array([.2] * 4 + [.03] * 4 + [.02] * 4 + [.0], np.float64)
+    p[-1] = 1 - p.sum()
+    recs = []
+    for n in lens:
+        r = alphabet[rng.choice(len(alphabet), n, p=p)]
+        if n > 300:
+            r[rng.integers(0, n - 40):][:40] = ord("N")
+        recs.append(r)
+    lens = np.asarray(lens, np.int64)
+    off = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=off[1:])
+    return np.concatenate(recs), off, lens
+
+
+@pytest.mark.parametrize("k,s,W,stride", [
+    (16, 16, 128, 113), (16, 64, 128, 113), (9, 40, 128, 113),
+    (1, 4, 128, 113), (16, 100, 300, 200), (12, 8, 40, 7),
+    (16, 256, 1000, 900)])
+def test_window_kernel_matches_plain(dev, k, s, W, stride):
+    """The build's window sketch on the card equals its plain version bit
+    for bit: records shorter than k and than a window, tail windows,
+    windows longer than a staged chunk, ambiguous bases anywhere."""
+    from metacache_tpu_torch.db.build import _num_windows
+    from metacache_tpu_torch.ops.sketch import sketch_windows_reference
+    rng = np.random.default_rng(k * 1000 + s)
+    lens = np.concatenate([[5, 15, 16, 17, 90, 128, 129, W, W + 1],
+                           rng.integers(1, 5000, 40)])
+    seq, off, rlen = ascii_records(k + s, lens)
+    nwin = _num_windows(rlen, W, stride)
+    win_off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(nwin, out=win_off[1:])
+    args = [torch.from_numpy(x).to(dev) for x in (seq, off, rlen, win_off)]
+    kw = dict(n_windows=int(win_off[-1]), k=k, sketch_size=s, window_size=W,
+              stride=stride)
+    before = sketch_cuda.window_launches
+    got = sketch_cuda.sketch_windows(*args, **kw)
+    torch.cuda.synchronize()
+    assert sketch_cuda.window_launches == before + 1
+    want = sketch_windows_reference(*args, **kw)
+    assert got.dtype == torch.int32 and got.shape == (int(win_off[-1]), s)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        sketch_cuda.sketch_windows(args[0], args[1].int(), *args[2:], **kw)
+
+
+def card_world(tmp_path):
+    """Twelve genomes (two groups of strains, N runs, lower case) in two
+    files, and the same database's build options."""
+    rng = np.random.default_rng(11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    bases = [rng.integers(0, 4, 6000) for _ in range(2)]
+    files = []
+    for f in range(2):
+        recs = []
+        for i in range(6):
+            g = bases[i % 2].copy()
+            m = rng.random(len(g)) < 0.02
+            g[m] = rng.integers(0, 4, int(m.sum()))
+            txt = acgt[g[:6000 - 77 * i]].tobytes().decode()
+            txt = txt[:500] + "N" * 30 + txt[530:900].lower() + txt[900:]
+            recs.append(f">NC_{10 * f + i:06d}.1 g\n{txt}\n")
+        path = tmp_path / f"g{f}.fa"
+        path.write_text("".join(recs))
+        files.append(str(path))
+    return files
+
+
+@pytest.mark.parametrize("shards,budget", [(1, None), (2, None), (2, 3000)],
+                         ids=["1-shard", "2-shards", "2-shards-spilled"])
+def test_card_build_equals_host_build(dev, tmp_path, shards, budget):
+    """build on the card (record stream, window kernel, device stores
+    sorted on the card; spilled into chunks with a small budget) gives
+    the native host path's shards, every array equal."""
+    from metacache_tpu_torch.db import build as tbuild
+    files = card_world(tmp_path)
+    host = tbuild.build_database_shards(
+        files, tbuild.BuildOptions(device="cpu"), num_shards=shards)
+    before = sketch_cuda.window_launches
+    if budget is None:
+        card = tbuild.build_database_shards(
+            files, tbuild.BuildOptions(device="cuda"), num_shards=shards)
+    else:
+        card = tbuild.build_shards_on_card(
+            files, tbuild.BuildOptions(device="cuda"), dev, shards,
+            store_triples=budget)
+    assert sketch_cuda.window_launches > before
+    for h, c in zip(host, card):
+        h.save(str(tmp_path / "host"))
+        c.save(str(tmp_path / "card"))
+    for s in range(shards):
+        with np.load(tmp_path / f"host_{s}.npz", allow_pickle=True) as a, \
+                np.load(tmp_path / f"card_{s}.npz", allow_pickle=True) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def _ambiguous_at(a, rows, positions):

@@ -108,7 +108,7 @@ def _result_lines(path):
 ])
 def test_multi_process_build_and_mesh_query(world, ranks, flags, shards):
     tag = f"d{ranks}_{len(flags)}"
-    build = ["genomes.fa", "-taxonomy", "tax"] + flags
+    build = ["genomes.fa", "-taxonomy", "tax", "-device", "cpu"] + flags
     launch_ranks(["build", tag] + build, world, ranks)
     cli("metacache_tpu_torch.cli",
         ["build", tag + "_one"] + build + ["-num-shards", str(shards)], world)

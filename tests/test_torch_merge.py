@@ -167,7 +167,7 @@ def test_streamed_fused_tables_on_mock_world(world, monkeypatch):  # noqa: F811
     """test_torch_mesh_one_device.py's database: test_torch_cli.py's world
     in 2 shards."""
     r = port_cli(["build", "tdb2m", "genomes.fa", "-taxonomy", "tax",
-                  "-num-shards", "2"], world)
+                  "-num-shards", "2", "-device", "cpu"], world)
     assert r.returncode == 0, r.stderr
     _fused_tables_equal(os.path.join(world, "tdb2m"), monkeypatch)
 

@@ -57,7 +57,7 @@ def _fused_overflow_reads(world, db):
 
 def test_mesh_on_one_device_differs_from_jax_only_on_overflow(world):  # noqa: F811
     r = port_cli(["build", "tdb2m", "genomes.fa", "-taxonomy", "tax",
-                  "-num-shards", "2"], world)
+                  "-num-shards", "2", "-device", "cpu"], world)
     assert r.returncode == 0, r.stderr
     base = ["query", "tdb2m"] + READS + FLAGS + ["-mesh"]
     rt = port_cli(base + ["-device", "cpu", "-out", "mesh2_port.txt"], world)

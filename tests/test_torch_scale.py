@@ -62,9 +62,10 @@ def repeat_world(tmp_path_factory):
         r2.append((f"q{q}", mock.mutate(rng, g[p + 250:p + 350], 0.01)))
     mock.write_fasta(os.path.join(tmp, "reads_1.fa"), r1)
     mock.write_fasta(os.path.join(tmp, "reads_2.fa"), r2)
-    for cli, db in ((jax_cli, "jdb"), (port_cli, "tdb")):
-        r = cli(["build", db, fasta, "-taxonomy", "tax", "-num-shards", "2"],
-                tmp)
+    for cli, db, dev in ((jax_cli, "jdb", []),
+                         (port_cli, "tdb", ["-device", "cpu"])):
+        r = cli(["build", db, fasta, "-taxonomy", "tax", "-num-shards", "2"]
+                + dev, tmp)
         assert r.returncode == 0, r.stderr
     return tmp
 
@@ -239,6 +240,10 @@ def test_config3_phases_rehearsed_on_cpu(tmp_path, monkeypatch):
     # merge's plain version), once per planned chunk: here one
     assert ("config3", "merge_shards", 1) in launched
     assert ("config3", "merge_count", 1) in launched
+    assert ("config3 build", "sketch_windows", None) in launched
+    w = c3["windows"]
+    assert w["err"] == 0 and w["shape"].startswith("config3_R4_bases800000_")
+    assert w["bound_ms"] > 0
     m = c3["merge"]
     assert m["merge_shards"]["err"] == 0 and m["merge_count"]["err"] == 0
     assert m["merge_shards"]["shape"].startswith("config3_P2_")
