@@ -22,7 +22,13 @@ Phases, each printed on its own line; any failure exits non-zero:
      plain version's call time, the one library call that computes the
      same function where there is one (table[idx] for the gather), the
      bound (bytes over the HBM rate or operations over the issue rate,
-     counted from the inputs) and the share of it.
+     counted from the inputs) and the share of it. Also timed at the
+     main path's shapes without the config-3 world, from fixed seeds:
+     the window kernel on one 25 Mbp record of config-3's composition
+     (221,239 windows, the build's first batch), and both merge kernels
+     on a full chunk of 2 shards (16,777,216 locations, ~7.6 M keys, a
+     third of the distinct keys in both shards, buckets of 1-8 and 40 at
+     254), each bit for bit against its plain version first.
   3. config-2 (BASELINE config-2, the RefSeq-viral analogue of bench.py:
      15,000 genomes, 1,048,576 single-end 100 bp reads): the port's CLI
      builds the database on the card (its card path: the window kernel
@@ -112,10 +118,12 @@ Imports neither JAX nor the JAX package.
     python3 chip_smoke.py --kernel-times [ROOT]
 
 runs phase 2 alone on the port found under ROOT (default: this
-checkout), to time another tree's kernels beside this one's in one call.
-It also times three yardsticks of the gather at each shape: the same
-output written by one fill kernel, by the kernel with no slot valid, and
-the valid slots' table reads alone as one library gather.
+checkout), to time another tree's kernels beside this one's in one call:
+all five at the main path's shapes (the window and merge kernels on
+their seeded inputs). It also times three yardsticks of the gather at
+each shape: the same output written by one fill kernel, by the kernel
+with no slot valid, and the valid slots' table reads alone as one
+library gather.
 """
 from __future__ import annotations
 
@@ -506,6 +514,9 @@ def phase_kernel(dev):
     say("kernel", edge_cases="ok", B=B, k="1,5,7,12,16",
         s="1,4,16,64,80,100,256", windows="128/113,300/200,1024/1000,40/7")
     results["windows_edges"] = dict(err=window_edges(dev, rng))
+    # the window kernel at the config-3 build's shape without its world
+    results["windows_seeded"] = time_windows(
+        seeded_record(np.random.default_rng(13)), "seeded")
     return results
 
 
@@ -687,8 +698,9 @@ def random_shards(rng, P, n_keys, max_bucket=8, pairs=64):
 def phase_merge_kernels(dev):
     """The shard merge streamed to the card (both merge kernels) against
     the same merge on the CPU (their plain versions), table for table, on
-    random tables of 2, 3 and 4 shards with ties, in many chunks.
-    -> the number of differing elements (0)."""
+    random tables of 2, 3 and 4 shards with ties, in many chunks; then
+    both kernels checked and timed on SEEDED_CHUNK. -> their time_merge
+    results and the edge cases' number of differing elements (0)."""
     import numpy as np
     import torch
     from metacache_tpu_torch.query import upload
@@ -708,7 +720,10 @@ def phase_merge_kernels(dev):
         check(err == 0 and all(got[k].shape == want[k].shape for k in want),
               f"merged tables differ from the plain merge (P={P})")
     say("merge_kernels", edge_cases="ok", shards="2,3,4")
-    return 0
+    # both kernels at the config-3 query's chunk shape without its world
+    seeded = time_merge(seeded_chunk(np.random.default_rng(14), dev),
+                        "seeded")
+    return dict(seeded, edges_err=0)
 
 
 def classify_seconds(path):
@@ -1537,16 +1552,15 @@ def window_bound(seq, rec_off, rec_len, win_off, out, k, W, stride):
                  + per_kmer * kmers)
 
 
-def windows_at(genomes):
-    """The window kernel on the config-3 build's first batch (its first
-    shard's records, a 25 Mbp genome): bit-equal to its plain version on
-    the card, and timed."""
+def time_windows(host, name):
+    """The window kernel on one batch (seq, rec_off, rec_len, win_off, host
+    arrays) at the build's sketch parameters: bit-equal to its plain
+    version on the card, and timed."""
     import torch
     from metacache_tpu_torch.config import SketchParams
     from metacache_tpu_torch.ops import sketch_cuda
     from metacache_tpu_torch.ops.sketch import sketch_windows_reference
     p = SketchParams()
-    host = window_batch(genomes)
     args = [torch.from_numpy(x).to(DEVICE) for x in host]
     kw = dict(n_windows=int(host[3][-1]), k=p.kmer_size,
               sketch_size=p.sketch_size, window_size=p.window_size,
@@ -1555,8 +1569,8 @@ def windows_at(genomes):
     want = sketch_windows_reference(*args, **kw)
     err = int((got.long() & 0xFFFFFFFF).sub_(want.long() & 0xFFFFFFFF)
               .abs_().max())
-    check(err == 0, "window kernel differs from plain (config-3 batch)")
-    name = f"config3_R{len(host[1])}_bases{int(host[2].sum())}" \
+    check(err == 0, f"window kernel differs from plain ({name})")
+    name = f"{name}_R{len(host[1])}_bases{int(host[2].sum())}" \
         f"_windows{kw['n_windows']}"
     res = timed(f"sketch_windows_{name}",
                 lambda: sketch_cuda.sketch_windows(*args, **kw),
@@ -1564,6 +1578,34 @@ def windows_at(genomes):
                 *window_bound(*host, got, p.kmer_size, p.window_size,
                               p.window_stride))
     return dict(res, err=err, shape=name)
+
+
+def windows_at(genomes):
+    """The window kernel on the config-3 build's first batch (its first
+    shard's records, a 25 Mbp genome)."""
+    return time_windows(window_batch(genomes), "config3")
+
+
+def seeded_record(rng):
+    """One record of config-3's composition without its world: C3_GLEN
+    uniform random upper-case bases with C3_TP_COPIES copies of a
+    C3_TP_LEN-base transposon (bench.make_config3_world's genome), as the
+    build's first batch holds it -> (seq, rec_off, rec_len, win_off)."""
+    import numpy as np
+    from metacache_tpu_torch.config import SketchParams
+    from metacache_tpu_torch.db.build import _num_windows
+    glen, tp_len = C3_WORLD["C3_GLEN"], C3_WORLD["C3_TP_LEN"]
+    tp = rng.integers(0, 4, tp_len)
+    g = rng.integers(0, 4, glen)
+    for _ in range(C3_WORLD["C3_TP_COPIES"]):
+        at = int(rng.integers(0, glen - tp_len))
+        g[at:at + tp_len] = tp
+    seq = np.frombuffer(b"ACGT", np.uint8)[g]
+    p = SketchParams()
+    lens = np.array([glen], np.int64)
+    nwin = _num_windows(lens, p.window_size, p.window_stride)
+    return seq, np.zeros(1, np.int64), lens, np.array([0, nwin[0]],
+                                                        np.int64)
 
 
 def merge_bound(chunk):
@@ -1576,19 +1618,14 @@ def merge_bound(chunk):
                  + 12 * chunk.nl, 0)
 
 
-def merge_at(tables, first):
-    """The merge kernels on the first real chunk of the config-3 query,
-    staged again from the shard files (so the query ran without a copy
-    of it on the card): bit-equal to their plain versions, and timed."""
+def time_merge(c, name):
+    """Both merge kernels on one chunk (keys, offs, tgt, win, bounds on the
+    card): bit-equal to their plain versions, and timed."""
     import torch
     from metacache_tpu_torch.ops import merge_cuda
     from metacache_tpu_torch.ops.merge import (count_keys_reference,
                                                merge_chunk_reference)
-    from metacache_tpu_torch.query import upload
-    dev = torch.device(DEVICE)
-    with upload.Stager(dev) as stager:
-        c = upload._Chunk(stager, tables, *first, locations=True)
-        stager.ready()
+    dev = c.keys.device
     args = (c.keys, c.offs, c.tgt, c.win, c.bounds)
     loc = torch.empty(c.nl, dtype=torch.int64, device=dev)
     key = merge_cuda.merge_chunk(*args, loc)
@@ -1596,13 +1633,14 @@ def merge_at(tables, first):
     merge_cuda.count_keys(c.keys, c.bounds, count)
     want_loc, want_key = merge_chunk_reference(*args)
     err = int((loc != want_loc).sum()) + int((key != want_key).sum())
+    del want_loc, want_key
     count_err = abs(int(count) - count_keys_reference(c.keys))
     check(err == 0, f"merge kernel differs from plain in {err} elements "
-                    "(config-3 chunk)")
+                    f"({name} chunk)")
     check(count_err == 0, f"merge count kernel differs from plain by "
-                          f"{count_err} (config-3 chunk)")
+                          f"{count_err} ({name} chunk)")
     P = c.bounds.shape[1] - 1
-    name = f"config3_P{P}_NK{c.keys.numel()}_NL{c.nl}"
+    name = f"{name}_P{P}_NK{c.keys.numel()}_NL{c.nl}"
     res = timed(f"merge_shards_{name}",
                 lambda: merge_cuda.merge_chunk(*args, loc),
                 lambda: merge_chunk_reference(*args), None,
@@ -1615,6 +1653,75 @@ def merge_at(tables, first):
                     library_in_graph=False)
     return {"merge_shards": dict(res, err=err, shape=name),
             "merge_count": dict(counted, err=count_err, shape=name)}
+
+
+def merge_at(tables, first):
+    """The merge kernels on the first real chunk of the config-3 query,
+    staged again from the shard files (so the query ran without a copy
+    of it on the card)."""
+    import torch
+    from metacache_tpu_torch.query import upload
+    with upload.Stager(torch.device(DEVICE)) as stager:
+        c = upload._Chunk(stager, tables, *first, locations=True)
+        stager.ready()
+    return time_merge(c, "config3")
+
+
+#: the seeded chunk: a full one (upload.CHUNK locations) of 2 shards with
+#: config-3's first chunk's key count, a third of the distinct keys in
+#: both shards, buckets of 1-8 (geometric, mean 2.2) and a few at the
+#: transposon's 254, each shard's own targets (shard s holds targets
+#: s, s + 2, ..., so no triple is in both)
+SEEDED_CHUNK = dict(nl=1 << 24, nk=7_608_963, giants=20, cap=254,
+                    targets=200, windows=221_239)
+
+
+def seeded_chunk(rng, dev):
+    """SEEDED_CHUNK's two shard tables laid out as one merge chunk on
+    `dev` (upload._Chunk's arrays: keys, offs, tgt, win, bounds, nl)."""
+    import types
+    import numpy as np
+    import torch
+    cfg = SEEDED_CHUNK
+    n_distinct = cfg["nk"] * 3 // 4
+    keys = np.unique(rng.integers(0, 1 << 32, n_distinct + n_distinct // 50,
+                                  dtype=np.uint64))
+    keys = rng.permutation(keys)[:n_distinct]
+    keys.sort()
+    side = rng.integers(0, 3, n_distinct)     # 0: both, 1: shard 0, 2: 1
+    mine = [side != 2, side != 1]
+    entries = int(mine[0].sum() + mine[1].sum())
+    sizes = np.minimum(rng.geometric(0.45, entries), 8)
+    sizes[rng.choice(entries, 2 * cfg["giants"], replace=False)] = cfg["cap"]
+    short = cfg["nl"] - int(sizes.sum())     # reach nl exactly, by +-1
+    step = 1 if short > 0 else -1
+    ok = np.flatnonzero((sizes < 8) if step > 0 else
+                        ((sizes > 1) & (sizes < cfg["cap"])))
+    sizes[rng.choice(ok, abs(short), replace=False)] += step
+    parts, at = [], 0
+    for s in (0, 1):
+        k = keys[mine[s]].astype(np.uint32)
+        size = sizes[at:at + len(k)]
+        at += len(k)
+        offsets = np.zeros(len(k) + 1, np.int64)
+        np.cumsum(size, out=offsets[1:])
+        n = int(offsets[-1])
+        tgt = 2 * rng.integers(0, cfg["targets"] // 2, n) + s
+        win = rng.integers(0, cfg["windows"], n)
+        order = np.argsort((np.repeat(np.arange(len(k), dtype=np.uint64),
+                                      size) << np.uint64(40))
+                           | (tgt.astype(np.uint64) << np.uint64(20))
+                           | win.astype(np.uint64), kind="stable")
+        parts.append((k.view(np.int32), offsets, tgt[order].astype(np.int32),
+                      win[order].astype(np.int32)))
+    kbeg = np.cumsum([0] + [len(p[0]) for p in parts])
+    lbeg = np.cumsum([0] + [len(p[2]) for p in parts])
+    cat = [torch.from_numpy(np.concatenate([p[i] for p in parts])).to(dev)
+           for i in range(4)]
+    return types.SimpleNamespace(
+        keys=cat[0], offs=cat[1], tgt=cat[2], win=cat[3],
+        bounds=torch.from_numpy(np.stack([kbeg, lbeg]).astype(np.int64))
+        .to(dev), nl=int(lbeg[-1]))
 
 
 def gather_at(batch):
@@ -1709,26 +1816,35 @@ def use_repo_tests_package():
     sys.modules["tests"] = pkg
 
 
+def seeded_times(res):
+    """A kernel's times on its seeded input, as extra keys of its row."""
+    return dict(seeded_shape=res["shape"],
+                **{f"seeded_{k}": res[k] for k in TIMES})
+
+
 def kernels_json(sketch, gather, merge, windows):
     cell = sketch["cells"]
     c2 = gather["config2"]
     c3 = gather["config3"]
+    seeded = sketch["windows_seeded"]
     rows = [dict(
         name="sketch_packed", route="cuda",
         source="metacache_tpu_torch/csrc/sketch.cu", replaces=PALLAS_SKETCH,
         launches=LAUNCHES["sketch_packed"],
         max_abs_err=max(r["err"] for n, r in sketch.items()
-                        if n != "windows_edges"),
+                        if not n.startswith("windows")),
         shape=cell["shape"], **{k: cell[k] for k in TIMES})]
     # the build's reference-window sketch: the same per-window function
     # as the TPU kernel, on whole records; timed on the config-3 build's
-    # first batch
+    # first batch, and on the seeded record under seeded_*
     rows.append(dict(
         name="sketch_windows", route="cuda",
         source="metacache_tpu_torch/csrc/sketch.cu", replaces=PALLAS_SKETCH,
         launches=LAUNCHES["sketch_windows"],
-        max_abs_err=max(windows["err"], sketch["windows_edges"]["err"]),
-        shape=windows["shape"], **{k: windows[k] for k in TIMES}))
+        max_abs_err=max(windows["err"], sketch["windows_edges"]["err"],
+                        seeded["err"]),
+        shape=windows["shape"], **{k: windows[k] for k in TIMES},
+        **seeded_times(seeded)))
     # one kernel replaces both probes (k2's row-and-lane layout has no
     # counterpart on Hopper); its times at config-2's lookup shape, at
     # k1's own shape under k1_*, and on a real config-3 batch under
@@ -1744,16 +1860,19 @@ def kernels_json(sketch, gather, merge, windows):
             config3_shape=c3["shape"],
             **{f"config3_{k}": c3[k] for k in TIMES}))
     # the shard merge (no TPU kernel: the JAX package merges on the host),
-    # timed on the first real chunk of the fused config-3 query; its edge
-    # cases (3 and 4 shards, ties) count in max_abs_err
+    # timed on the first real chunk of the fused config-3 query, and on
+    # the seeded chunk under seeded_*; its edge cases (3 and 4 shards,
+    # ties) count in max_abs_err
     for name in ("merge_shards", "merge_count"):
-        res = merge[name]
+        res, sd = merge[name], merge["seeded"][name]
         rows.append(dict(
             name=name, route="cuda",
             source="metacache_tpu_torch/csrc/merge.cu", replaces=HOST_MERGE,
-            launches=LAUNCHES[name], max_abs_err=max(res["err"],
-                                                     merge["edges_err"]),
-            shape=res["shape"], **{k: res[k] for k in TIMES}))
+            launches=LAUNCHES[name],
+            max_abs_err=max(res["err"], sd["err"],
+                            merge["seeded"]["edges_err"]),
+            shape=res["shape"], **{k: res[k] for k in TIMES},
+            **seeded_times(sd)))
     return {"kernels": rows}
 
 
@@ -1815,7 +1934,7 @@ def main() -> int:
         dev = torch.device("cuda")
         sketch = timed_phase("kernel", phase_kernel, dev)
         gather = timed_phase("gather", phase_gather, dev)
-        edges_err = timed_phase("merge_kernels", phase_merge_kernels, dev)
+        merge_seeded = timed_phase("merge_kernels", phase_merge_kernels, dev)
         c2 = timed_phase("config2", phase_config2)
         big = timed_phase("realistic", phase_realistic)
         timed_phase("evaluation", phase_evaluation, c2)
@@ -1829,7 +1948,7 @@ def main() -> int:
         timed_phase("realistic_mesh", phase_realistic_mesh, big)
         c3 = timed_phase("config3", phase_config3)
         gather["config3"] = c3["gather"]
-        merge = dict(c3["merge"], edges_err=edges_err)
+        merge = dict(c3["merge"], seeded=merge_seeded)
         timed_phase("config3_mesh", phase_config3_mesh, c3)
         timed_phase("self_contained", phase_self_contained)
         say("done", seconds=f"{time.time() - t0:.1f}")

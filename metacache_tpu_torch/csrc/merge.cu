@@ -13,38 +13,62 @@
 //   bounds      [2, P+1] i64: where each shard's keys (row 0) and
 //               locations (row 1) start in the arrays above
 //
-// mc_merge_locations: one thread per location, by rank. Location i of
-// shard s, with key k, target t and window w, goes to the chunk-local
-// position i + sum over the other shards r of rank_r(k, t, w), where
-// rank_r counts r's locations that sort before it in (key, target,
-// window) order: a binary search for k in r's keys gives every location
-// of smaller keys (r's offsets at that key), then a binary search on
-// (target, window) inside r's bucket of k. Equal triples go to the lower
-// shard first (shard r < s counts <=, r > s counts <), which is the tie
-// rule of the host merge mcio_merge_shard_tables (native/mcio.cpp), so the
-// result is that merge's, location for location. The thread writes the
-// packed location (target << 32 | window) into the engine's final
-// location table and the key beside it; the caller turns key run starts
-// into the chunk's fused keys and offsets. Buckets left empty are
-// skipped, as the host merge skips them.
+// mc_merge_locations: the chunk's locations in the fused order, (key,
+// target, window) ascending, equal triples in shard order: the order of
+// the host merge mcio_merge_shard_tables (native/mcio.cpp), location for
+// location. It writes the packed location (target << 32 | window) into
+// the engine's final location table and the key beside it; the caller
+// turns key run starts into the chunk's fused keys and offsets. Buckets
+// left empty are skipped, as the host merge skips them.
 //
-// mc_merge_count_keys: the same searches in count mode, one thread per key:
-// a key counts unless a lower shard holds it too. Summed over the chunks
-// it sizes the fused key table before anything else is allocated.
+// What bounds it on the card: device-memory bytes, 20 per location (tgt,
+// win read; an 8-byte location and a 4-byte key written) and 12 per key.
+// The first design gave each location a thread that found its
+// output place by binary searches: its own shard's offsets for its key,
+// then every other shard's keys and that shard's bucket, ~45-50
+// dependent loads a location, repeated by neighbours that share a key;
+// at config-3's first chunk (16.8 M locations, ~7.6 M keys: ~90 MB of
+// keys and offsets, more than the 50 MB L2) their lower levels went to
+// device memory, and it reached 14% of the bound. Redesigned as
+// a merge path over tiles of the output (the GPU merge-path partition),
+// three kernels per call, all counted as the call's one launch:
+//   1. expand_keys_kernel, one thread per key: writes the key of every
+//      location of its bucket into a scratch array (4 bytes a location),
+//      so that a location's key is one load;
+//   2. merge_partition_kernel, one thread per tile of kTile output
+//      positions: one binary search on the merge's diagonal through its
+//      tile's first position gives how many of the tile's predecessors
+//      come from the left input, comparing (key, target, window) triples
+//      read straight from the arrays, ties to the left;
+//   3. merge_tiles_kernel, one block per tile: loads its slices of both
+//      inputs once, coalesced, into shared memory; each thread finds its
+//      kItems outputs' split by a second diagonal search there and merges
+//      them serially; the block writes its tile back contiguously.
+// Two shards (the config-3 query) take one round of 2 and 3. P > 2 runs
+// ceil(log2 P) rounds of the same two-way merge over neighbouring groups
+// of shards (left group first on ties: the lower shards), through
+// scratch arrays; the last round writes the outputs. The scratch (the
+// partition, the expanded keys and, for P > 2, two sets of round
+// outputs) is allocated by the caller: mc_merge_scratch_bytes says how
+// much. Bytes moved: 12 per key and 4 per location (1), 12 read and 12
+// written per location and round (3), against the bound's 12 and 20.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W on config-3's first
+// chunk (chip_smoke.py, PERF.md): 0.293 ms, 43.6% of its 0.1275 ms
+// bound (the first design: 0.900 ms).
+//
+// mc_merge_count_keys: one thread per key, a binary search in every
+// lower shard's keys: a key counts unless a lower shard holds it too.
+// Summed over the chunks it sizes the fused key table before anything
+// else is allocated.
 //
 // There is no TPU kernel to replace: the JAX package merges shards on the
 // host (metacache_tpu/native/mcio.cpp, mcio_merge_shard_tables), as the
 // port did before this kernel.
 //
-// What bounds it on the card: device-memory bytes, 20 per location (tgt,
-// win read; an 8-byte location and a 4-byte key written) and 12 per key.
-// Each thread makes (P - 1) dependent binary searches, ~20 steps in a
-// chunk's keys and ~8 in a bucket; a chunk's key slices (a few MB) stay
-// in the 50 MB L2, so the searches are latency-bound loads from L2.
-//
 // Plain C interface, bound with ctypes (metacache_tpu_torch/ops/
 // merge_cuda.py, built by ops/cuda_build.py). Each launcher returns
-// cudaGetLastError() after the launch; the caller allocates every buffer.
+// cudaGetLastError() after its launches; the caller allocates every
+// buffer.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -72,67 +96,203 @@ __device__ __forceinline__ long long lower_bound(
   return lo;
 }
 
+// ---- the location merge: expand, partition, merge tiles ----
+
+constexpr int kTile = 2048;           // output positions a merge block takes
+constexpr int kMergeThreads = 256;
+constexpr int kItems = kTile / kMergeThreads;  // outputs a thread merges
+// shared arrays hold element e at e + e / 32, so that both a thread's
+// kItems consecutive elements and 32 consecutive ones fall in 32 banks
+constexpr int kSkewed = kTile + kTile / 32;
+
+__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
+
+// Location i of shard s goes to scratch position lbeg[s] + i: every
+// location of key j's bucket gets key j.
 __global__ void __launch_bounds__(kThreads)
-    merge_locations_kernel(const unsigned* __restrict__ keys,
-                           const long long* __restrict__ offs,
+    expand_keys_kernel(const unsigned* __restrict__ keys,
+                       const long long* __restrict__ offs,
+                       const long long* __restrict__ bounds, int P,
+                       long long nk, unsigned* __restrict__ lockey) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= nk) return;
+  const long long* kbeg = bounds;
+  const long long* lbeg = bounds + P + 1;
+  const int s = shard_of(kbeg, i);
+  const long long* os = offs + kbeg[s] + s;
+  const long long j = i - kbeg[s];
+  const long long base = lbeg[s] - __ldg(os);
+  const unsigned k = __ldg(keys + i);
+  const long long to = base + __ldg(os + j + 1);
+  for (long long p = base + __ldg(os + j); p < to; ++p) lockey[p] = k;
+}
+
+// One round's pair g: its left input [ps, pm) (the shards
+// [2 g hw, 2 g hw + hw)) and its right input [pm, pe) (the next hw).
+struct Pair {
+  long long ps, pm, pe;
+};
+
+__device__ __forceinline__ Pair pair_at(const long long* lbeg, int P,
+                                        int hw, int g) {
+  const int s0 = 2 * g * hw;
+  return {lbeg[min(s0, P)], lbeg[min(s0 + hw, P)], lbeg[min(s0 + 2 * hw, P)]};
+}
+
+// (key, target, window) of a: does it come before b, or tie with it?
+__device__ __forceinline__ bool not_after(unsigned ka, int ta, int wa,
+                                          unsigned kb, int tb, int wb) {
+  return ka < kb || (ka == kb && (ta < tb || (ta == tb && wa <= wb)));
+}
+
+// How many of the first `diag` outputs of the pair's merge come from its
+// left input (ties to the left).
+__device__ long long split_global(const unsigned* __restrict__ key,
+                                  const int* __restrict__ tgt,
+                                  const int* __restrict__ win, Pair q,
+                                  long long diag) {
+  const long long nb = q.pe - q.pm;
+  long long lo = max(0ll, diag - nb), hi = min(diag, q.pm - q.ps);
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    const long long a = q.ps + mid, b = q.pm + diag - 1 - mid;
+    if (not_after(__ldg(key + a), __ldg(tgt + a), __ldg(win + a),
+                  __ldg(key + b), __ldg(tgt + b), __ldg(win + b)))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// part[b]: the split of tile b's first position in the pair holding it.
+__global__ void __launch_bounds__(kThreads)
+    merge_partition_kernel(const unsigned* __restrict__ key,
                            const int* __restrict__ tgt,
                            const int* __restrict__ win,
                            const long long* __restrict__ bounds, int P,
-                           long long nl, long long* __restrict__ out_loc,
-                           int* __restrict__ out_key) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                           int hw, long long tiles,
+                           long long* __restrict__ part) {
+  const long long b = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (i >= nl) return;
-  const long long* kbeg = bounds;
+  if (b >= tiles) return;
   const long long* lbeg = bounds + P + 1;
-  const int s = shard_of(lbeg, i);
-  const long long li = i - lbeg[s];
-  // own bucket: the first j whose bucket ends past this location (empty
-  // buckets end where they start, so they are passed over)
-  const unsigned* ks = keys + kbeg[s];
-  const long long* os = offs + kbeg[s] + s;
-  const long long x = os[0] + li;
-  long long lo = 0, hi = kbeg[s + 1] - kbeg[s];
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(os + mid + 1) <= x) lo = mid + 1;
-    else hi = mid;
-  }
-  const unsigned k = __ldg(ks + lo);
-  const int t = __ldg(tgt + i);
-  const int w = __ldg(win + i);
-  long long pos = li;
-  for (int r = 0; r < P; ++r) {
-    if (r == s) continue;
-    const unsigned* kr = keys + kbeg[r];
-    const long long nkr = kbeg[r + 1] - kbeg[r];
-    const long long* orr = offs + kbeg[r] + r;
-    const long long j = lower_bound(kr, nkr, k);
-    long long before = __ldg(orr + j) - __ldg(orr);
-    if (j < nkr && __ldg(kr + j) == k) {
-      const int* tr = tgt + lbeg[r] + before;
-      const int* wr = win + lbeg[r] + before;
-      long long a = 0, b = __ldg(orr + j + 1) - __ldg(orr + j);
-      const bool ties_before = r < s;
-      while (a < b) {
-        const long long m = (a + b) >> 1;
-        const int tm = __ldg(tr + m);
-        const int wm = __ldg(wr + m);
-        if (tm < t || (tm == t && (wm < w || (ties_before && wm == w))))
-          a = m + 1;
-        else
-          b = m;
-      }
-      before += a;
-    }
-    pos += before;
-  }
-  out_loc[pos] = static_cast<long long>(
-                     static_cast<unsigned long long>(static_cast<long long>(t))
-                     << 32) |
-                 static_cast<long long>(w);
-  out_key[pos] = static_cast<int>(k);
+  const long long d = b * kTile;
+  int g = 0;
+  Pair q = pair_at(lbeg, P, hw, 0);
+  while (q.pe <= d) q = pair_at(lbeg, P, hw, ++g);
+  part[b] = split_global(key, tgt, win, q, d - q.ps);
 }
+
+// Tile b: output positions [b kTile, (b + 1) kTile) of every pair of the
+// round that holds some of them. Writes (key, target, window) arrays,
+// or, in the last round, the packed locations and their keys.
+template <bool kLast>
+__global__ void __launch_bounds__(kMergeThreads)
+    merge_tiles_kernel(const unsigned* __restrict__ key,
+                       const int* __restrict__ tgt,
+                       const int* __restrict__ win,
+                       const long long* __restrict__ bounds, int P, int hw,
+                       long long nl, const long long* __restrict__ part,
+                       unsigned* __restrict__ okey, int* __restrict__ otgt,
+                       int* __restrict__ owin,
+                       long long* __restrict__ out_loc) {
+  __shared__ unsigned sk[kSkewed];
+  __shared__ int st[kSkewed], sw[kSkewed];
+  const long long* lbeg = bounds + P + 1;
+  const int tid = threadIdx.x;
+  const long long d0 = static_cast<long long>(blockIdx.x) * kTile;
+  const long long d1 = min(d0 + kTile, nl);
+  const int pairs = (P + 2 * hw - 1) / (2 * hw);
+  for (int g = 0; g < pairs; ++g) {
+    const Pair q = pair_at(lbeg, P, hw, g);
+    if (q.pe <= d0 || q.ps >= d1) continue;
+    const long long ds = max(d0, q.ps) - q.ps, de = min(d1, q.pe) - q.ps;
+    const long long a0 = q.ps >= d0 ? 0 : part[blockIdx.x];
+    const long long a1 = q.pe <= d1 ? q.pm - q.ps : part[blockIdx.x + 1];
+    const long long b0 = ds - a0;
+    const int na = static_cast<int>(a1 - a0);
+    const int n = static_cast<int>(de - ds);
+    const int nb = n - na;
+    __syncthreads();  // the last pair's tile is written out
+    for (int e = tid; e < n; e += kMergeThreads) {
+      const long long src = e < na ? q.ps + a0 + e : q.pm + b0 + (e - na);
+      sk[skew(e)] = __ldg(key + src);
+      st[skew(e)] = __ldg(tgt + src);
+      sw[skew(e)] = __ldg(win + src);
+    }
+    __syncthreads();
+    // this thread's outputs [x0, x0 + cnt) of the tile: left elements
+    // [0, na), right [na, n) in the shared arrays
+    const int x0 = min(tid * kItems, n);
+    const int cnt = min(kItems, n - x0);
+    int lo = max(0, x0 - nb), hi = min(x0, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int a = skew(mid), b = skew(na + x0 - 1 - mid);
+      if (not_after(sk[a], st[a], sw[a], sk[b], st[b], sw[b]))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int ia = lo, ib = x0 - lo;
+    unsigned rk[kItems];
+    int rt[kItems], rw[kItems];
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      if (r < cnt) {
+        const int a = skew(ia), b = skew(na + ib);
+        const bool left =
+            ib >= nb ||
+            (ia < na && not_after(sk[a], st[a], sw[a], sk[b], st[b], sw[b]));
+        const int c = left ? a : b;
+        rk[r] = sk[c];
+        rt[r] = st[c];
+        rw[r] = sw[c];
+        ia += left;
+        ib += !left;
+      }
+    }
+    __syncthreads();  // every thread has read its inputs
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      if (r < cnt) {
+        const int c = skew(x0 + r);
+        sk[c] = rk[r];
+        st[c] = rt[r];
+        sw[c] = rw[r];
+      }
+    }
+    __syncthreads();
+    const long long at = q.ps + ds;
+    for (int e = tid; e < n; e += kMergeThreads) {
+      const int c = skew(e);
+      if (kLast) {
+        out_loc[at + e] =
+            static_cast<long long>(
+                static_cast<unsigned long long>(static_cast<long long>(st[c]))
+                << 32) |
+            static_cast<long long>(sw[c]);
+        okey[at + e] = sk[c];
+      } else {
+        okey[at + e] = sk[c];
+        otgt[at + e] = st[c];
+        owin[at + e] = sw[c];
+      }
+    }
+  }
+}
+
+// The rounds a merge of P shards takes (at least one: it also moves a
+// single shard's locations into place).
+int merge_rounds(int P) {
+  int r = 1;
+  while ((1 << r) < P) ++r;
+  return r;
+}
+
+long long round_up(long long bytes) { return (bytes + 255) & ~255ll; }
 
 __global__ void __launch_bounds__(kThreads)
     merge_count_keys_kernel(const unsigned* __restrict__ keys,
@@ -159,24 +319,84 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// Bytes of scratch that mc_merge_locations needs for P shards and nl
+// locations: the partition, the expanded keys and, for P > 2, two sets
+// of (key, target, window) arrays for the rounds' outputs.
+extern "C" long long mc_merge_scratch_bytes(int P, long long nl) {
+  const long long tiles = (nl + kTile - 1) / kTile;
+  return round_up(8 * tiles) + round_up(4 * nl) * (P > 2 ? 6 : 1);
+}
+
 // keys [NK] u32, offs [NK+P] i64, tgt / win [NL] i32, bounds [2, P+1] i64
-// (device pointers) -> out_loc [NL] i64 (the chunk's slice of the final
-// location table) and out_key [NL] i32 (u32 bits). Returns a cudaError_t.
+// and scratch of mc_merge_scratch_bytes(P, nl) bytes (device pointers) ->
+// out_loc [NL] i64 (the chunk's slice of the final location table) and
+// out_key [NL] i32 (u32 bits). Returns a cudaError_t.
 extern "C" int mc_merge_locations(const void* keys, const void* offs,
                                   const void* tgt, const void* win,
-                                  const void* bounds, int P, long long nl,
-                                  void* out_loc, void* out_key,
-                                  void* stream) {
-  if (P < 1 || nl < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* bounds, int P, long long nk,
+                                  long long nl, void* out_loc, void* out_key,
+                                  void* scratch, void* stream) {
+  if (P < 1 || nk < 0 || nl < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nl == 0) return 0;
-  const long long blocks = (nl + kThreads - 1) / kThreads;
-  merge_locations_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(keys), static_cast<const long long*>(offs),
-      static_cast<const int*>(tgt), static_cast<const int*>(win),
-      static_cast<const long long*>(bounds), P, nl,
-      static_cast<long long*>(out_loc), static_cast<int*>(out_key));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* bnd = static_cast<const long long*>(bounds);
+  const long long tiles = (nl + kTile - 1) / kTile;
+  char* at = static_cast<char*>(scratch);
+  long long* part = reinterpret_cast<long long*>(at);
+  at += round_up(8 * tiles);
+  // the round outputs: set 0 reuses the expanded keys once read
+  unsigned* rkey[2] = {nullptr, nullptr};
+  int* rtgt[2] = {nullptr, nullptr};
+  int* rwin[2] = {nullptr, nullptr};
+  for (int i = 0; i < (P > 2 ? 6 : 1); ++i) {
+    int* a = reinterpret_cast<int*>(at);
+    at += round_up(4 * nl);
+    if (i % 3 == 0) rkey[i / 3] = reinterpret_cast<unsigned*>(a);
+    else if (i % 3 == 1) rtgt[i / 3] = a;
+    else rwin[i / 3] = a;
+  }
+  if (nk > 0) {
+    expand_keys_kernel<<<static_cast<unsigned>((nk + kThreads - 1) /
+                                               kThreads),
+                         kThreads, 0, st>>>(
+        static_cast<const unsigned*>(keys),
+        static_cast<const long long*>(offs), bnd, P, nk, rkey[0]);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const unsigned* ik = rkey[0];
+  const int* it = static_cast<const int*>(tgt);
+  const int* iw = static_cast<const int*>(win);
+  const int rounds = merge_rounds(P);
+  for (int r = 0; r < rounds; ++r) {
+    const int hw = 1 << r;
+    merge_partition_kernel<<<static_cast<unsigned>((tiles + kThreads - 1) /
+                                                   kThreads),
+                             kThreads, 0, st>>>(ik, it, iw, bnd, P, hw,
+                                                tiles, part);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (r == rounds - 1) {
+      merge_tiles_kernel<true><<<static_cast<unsigned>(tiles), kMergeThreads,
+                                 0, st>>>(
+          ik, it, iw, bnd, P, hw, nl, part,
+          static_cast<unsigned*>(out_key), nullptr, nullptr,
+          static_cast<long long*>(out_loc));
+    } else {
+      const int o = (r + 1) % 2;  // round 0 writes set 1, round 1 set 0
+      merge_tiles_kernel<false><<<static_cast<unsigned>(tiles),
+                                  kMergeThreads, 0, st>>>(
+          ik, it, iw, bnd, P, hw, nl, part, rkey[o], rtgt[o], rwin[o],
+          nullptr);
+      ik = rkey[o];
+      it = rtgt[o];
+      iw = rwin[o];
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 // keys [NK] u32, kbeg [P+1] i64 -> *count += the keys of the chunk that no

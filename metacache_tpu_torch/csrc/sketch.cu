@@ -37,14 +37,48 @@
 //
 // A second entry, mc_sketch_windows, sketches the build's reference
 // windows: every window of a batch of whole records as read (ASCII), the
-// same per-window function, in place of the host's native sketcher. It
-// shares the k-mer hash and the merge with the read kernel (inlined
-// device functions: the read kernel's code and time are unchanged) and
-// differs only in how a chunk is staged: each warp loads 32 characters at
-// a time and builds the packed and ambiguity words with three ballots.
-// Its bytes are the records' (~1 byte a k-mer start) and its output; its
-// operations, as the read kernel's, are the k-mer work, so it is bound by
-// operations at the build's windows.
+// same per-window function, in place of the host's native sketcher. At
+// the build's shape (k 16, s 16, window 128, stride 113 = W - k + 1) a
+// launch holds ~221,000 adjacent windows of one 25 Mbp record, and each
+// k-mer start belongs to exactly one window. Its bytes are the records'
+// (~1 byte a k-mer start) and its output; its operations are the k-mer
+// work, so it is bound by operations (~64 lane operations a window).
+// The first design ran the read kernel's code, one warp per
+// window, and took ~1,440 warp issue slots a window (4.4% of the bound):
+// the merge's s serial rounds of __reduce_min_sync, each yielding one
+// value for all 32 lanes; staging by ballots whose interleave lane 0 ran
+// alone, every window encoding again the k - 1 characters it shares with
+// the next; and 15 of 128 k-mer slots idle. Redesigned, a block
+// of up to 128 windows (sketch_span_kernel):
+//   - stages its windows' span of the records once: the 16-byte chunks
+//     the windows cover (consecutive windows of a record share them, so
+//     the build's windows load ~14.5 kB of one span), eight chunks per
+//     thread with their uint4 loads in flight together, encoded in
+//     registers by byte-wise arithmetic (2-bit codes and ambiguity bits
+//     of 16 characters in ~90 operations, every thread busy) into
+//     shared memory;
+//   - gives each thread one window. It rolls each character into both
+//     strands once (two shifts and a funnel shift) and hashes each
+//     k-mer once; validity for 16 k-mers at a time comes from one smear
+//     of their ambiguity bits, applied as a mask, not a branch;
+//   - selects without branches: each batch of 16 hashes is sorted by a
+//     60-comparator network and merged into the kCap kept values (16,
+//     32 or 64 >= s, sorted in registers) by the lower half of a
+//     bitonic merge, ~120 min/max operations a batch. Inserting hash by
+//     hash cost more: the warp ran the 31-operation insert whenever one
+//     of its 32 lanes kept a hash, on nearly every k-mer. The merge
+//     keeps equal hashes (a k-mer repeated in the window) as often as
+//     they occur; a window whose kept values are not all distinct is
+//     redone hash by hash, dropping a hash equal to a kept one;
+//   - writes the block's sketches through shared memory, so the stores
+//     of consecutive windows' rows coalesce.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the config-3 build's
+// first batch shape (scripts/window_parts.py, PERF.md): staging and
+// output ~0.015 ms, the strands and hashes ~0.027 ms, the selection
+// ~0.024 ms, 0.067 ms in all (the first design: 0.305 ms).
+// Sketch sizes over 64, and windows too long for a block's staging room
+// (W over 65,536 characters), keep the first design
+// (sketch_windows_kernel, one warp per window).
 //
 // Plain C interface, bound with ctypes (metacache_tpu_torch/ops/
 // sketch_cuda.py, built by ops/cuda_build.py). The launchers return
@@ -246,14 +280,16 @@ __device__ __forceinline__ uint32_t interleave16(uint32_t lo, uint32_t hi) {
   return lo | (hi << 1);
 }
 
-// The window sketch of the build: one warp per window of a batch of whole
-// reference records. Window w of record r covers bytes
-// [off[r] + w * stride, + min(W, len[r] - w * stride)) of seq (ASCII, as
-// read); task t is window t - win_off[r] of the record r with
-// win_off[r] <= t < win_off[r + 1]. Each chunk of the window is staged as
-// the packed kernel stages its rows (2-bit words and ambiguity words, in
-// shared memory), built from the ASCII bytes by three ballots per 32
-// characters, so the k-mer hashes and the merge are the packed kernel's.
+// The window sketch of the build, first design, kept for sketch
+// sizes over 64 and windows too long for a span block: one warp per
+// window of a batch of whole reference records. Window w of record r
+// covers bytes [off[r] + w * stride, + min(W, len[r] - w * stride)) of
+// seq (ASCII, as read); task t is window t - win_off[r] of the record r
+// with win_off[r] <= t < win_off[r + 1]. Each chunk of the window is
+// staged as the packed kernel stages its rows (2-bit words and ambiguity
+// words, in shared memory), built from the ASCII bytes by three ballots
+// per 32 characters, so the k-mer hashes and the merge are the packed
+// kernel's.
 template <int kSlots>
 __global__ void __launch_bounds__(kWarps * 32)
     sketch_windows_kernel(const uint8_t* __restrict__ seq,
@@ -334,6 +370,366 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---- the build's windows, a block per span of the records ----
+
+constexpr int kSpanThreads = 128;  // threads a block, one window each
+constexpr int kStaged = 8;         // chunks a thread loads at once
+// shared memory a block may take without an opt-in
+constexpr int kSpanSmem = 48 * 1024;
+
+// Where each of a span block's shared arrays starts, in bytes, for nw
+// windows of at most W characters and sketch size s: per window its
+// first and one-past-last 16-byte chunk (u64 each); the first chunk of
+// a run; per window the end of its staged chunks (i32); the warps'
+// totals; then one region that holds the staged chunks (packed words
+// and ambiguity half-words) and, once they are read, the block's
+// sketches (rows of s + 1 words: no bank conflicts).
+struct SpanLayout {
+  int chunks;  // staged 16-byte chunks at most: each window's own
+  int ca, cb, run, end, warp, packed, ambig, rows, bytes;
+  __host__ __device__ SpanLayout(int nw, int W, int s) {
+    chunks = nw * ((W + 30) / 16);
+    ca = 0;
+    cb = ca + 8 * nw;
+    run = cb + 8 * nw;
+    end = run + 8;
+    warp = end + 4 * nw;
+    packed = (warp + 4 * (kSpanThreads / 32) + 15) & ~15;
+    ambig = packed + 4 * (chunks + 2);
+    rows = packed;
+    const int stage = ambig + 2 * (chunks + 4);
+    const int out = rows + 4 * nw * (s + 1);
+    bytes = stage > out ? stage : out;
+  }
+};
+
+// The 2-bit codes (character i at bits 2i) and ambiguity bits (bit i) of
+// the 16 ASCII characters in v, by byte-wise arithmetic in registers:
+// per byte, (lower case >> 1) & 3 is 0 1 3 2 for a c g t, an xor of its
+// high bit into its low bit makes it 0 1 2 3, and the byte is a base
+// exactly when it equals the letter of that code (ops/encode.py's
+// CHAR_LUT).
+__device__ __forceinline__ void encode_chunk(uint4 v, uint32_t& packed,
+                                             uint32_t& amb) {
+  const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+  packed = 0;
+  amb = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t c = word[q] | 0x20202020u;
+    uint32_t x = (c >> 1) & 0x03030303u;
+    x ^= (x >> 1) & 0x01010101u;
+    // each byte's code as the nibble selector of its letter in "acgt"
+    const uint32_t y = x | (x >> 4);
+    const uint32_t sel = (y & 0xFFu) | ((y >> 8) & 0xFF00u);
+    const uint32_t d = c ^ __byte_perm(0x74676361u, 0, sel);
+    const uint32_t nonzero =
+        (((d & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | d) & 0x80808080u;
+    // one bit (amb) or two (codes) of each byte gathered by a multiply
+    amb |= ((((nonzero >> 7) * 0x01020408u) >> 24) & 0xFu) << (4 * q);
+    packed |= ((x * 0x01041040u) >> 24) << (8 * q);
+  }
+}
+
+// Bit q of the result: a bit of a is set among bits q .. q + k - 1 (for
+// q + k <= 32).
+__device__ __forceinline__ uint32_t any_in_span(uint32_t a, int k) {
+  int w = 1;  // a's bit q covers bits [q, q + w)
+  for (; 2 * w <= k; w *= 2) a |= a >> w;
+  return w < k ? a | (a >> (k - w)) : a;
+}
+
+__device__ __forceinline__ void compare_exchange(uint32_t& a, uint32_t& b) {
+  const uint32_t x = a;
+  a = min(x, b);
+  b = max(x, b);
+}
+
+// Sorts v ascending: a 60-comparator network of depth 10 (one layer a
+// line; it sorts all 2^16 inputs of zeros and ones, so by the 0-1
+// principle it sorts any input), every index fixed, so v stays in
+// registers.
+__device__ __forceinline__ void sort16(uint32_t (&v)[16]) {
+#define MC_CE(a, b) compare_exchange(v[a], v[b]);
+  MC_CE(0, 13) MC_CE(1, 12) MC_CE(2, 15) MC_CE(3, 14) MC_CE(4, 8)
+  MC_CE(5, 6) MC_CE(7, 11) MC_CE(9, 10)
+  MC_CE(0, 5) MC_CE(1, 7) MC_CE(2, 9) MC_CE(3, 4) MC_CE(6, 13)
+  MC_CE(8, 14) MC_CE(10, 15) MC_CE(11, 12)
+  MC_CE(0, 1) MC_CE(2, 3) MC_CE(4, 5) MC_CE(6, 8) MC_CE(7, 9)
+  MC_CE(10, 11) MC_CE(12, 13) MC_CE(14, 15)
+  MC_CE(0, 2) MC_CE(1, 3) MC_CE(4, 10) MC_CE(5, 11) MC_CE(6, 7)
+  MC_CE(8, 9) MC_CE(12, 14) MC_CE(13, 15)
+  MC_CE(1, 2) MC_CE(3, 12) MC_CE(4, 6) MC_CE(5, 7) MC_CE(8, 10)
+  MC_CE(9, 11) MC_CE(13, 14)
+  MC_CE(1, 4) MC_CE(2, 6) MC_CE(5, 8) MC_CE(7, 10) MC_CE(9, 13)
+  MC_CE(11, 14)
+  MC_CE(2, 4) MC_CE(3, 6) MC_CE(9, 12) MC_CE(11, 13)
+  MC_CE(3, 5) MC_CE(6, 8) MC_CE(7, 9) MC_CE(10, 12)
+  MC_CE(3, 4) MC_CE(5, 6) MC_CE(7, 8) MC_CE(9, 10) MC_CE(11, 12)
+  MC_CE(6, 7) MC_CE(8, 9)
+#undef MC_CE
+}
+
+// The kCap smallest hashes of the window whose first character is
+// staged character u0, ascending in sk (padded with kSentinel). Its
+// first k-mer by funnel shifts; then 16 k-mers a batch: each rolls one
+// character into both strands (16 characters taken from the staged
+// words at once), and their validity comes from one smear of the
+// batch's ambiguity bits, applied without a branch. kExact inserts
+// each hash into sk by a min/max network unless a kept value equals it
+// (the kCap smallest distinct hashes). Otherwise the batch is sorted by
+// a network and merged into sk (the kCap smallest with multiplicity,
+// which equals the exact result whenever the kept values come out
+// pairwise distinct): no branch, where inserting would run the network
+// for every k-mer that some lane of the warp keeps.
+template <int kCap, bool kExact>
+__device__ __forceinline__ void sketch_window(const uint32_t* sp,
+                                              const uint32_t* sa, int u0,
+                                              int n_kmers, int k,
+                                              uint32_t (&sk)[kCap]) {
+  const uint32_t kmask = k == 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1u;
+  const uint32_t amask = (1u << k) - 1u;
+  const int down = 32 - 2 * k;
+  auto keep = [&](uint32_t h) {
+    if (h < sk[kCap - 1]) {  // the sentinel never passes
+      bool dup = false;
+      if (kExact) {
+#pragma unroll
+        for (int r = 0; r < kCap - 1; ++r) dup |= sk[r] == h;
+      }
+      if (!dup) {
+#pragma unroll
+        for (int r = kCap - 1; r > 0; --r)
+          sk[r] = min(sk[r], max(sk[r - 1], h));
+        sk[0] = min(sk[0], h);
+      }
+    }
+  };
+  const uint32_t x =
+      __funnelshift_r(sp[u0 >> 4], sp[(u0 >> 4) + 1], 2 * (u0 & 15)) &
+      kmask;
+  uint32_t fwd = reverse_groups(x) >> down;
+  uint32_t rct = ~x << down;
+  const uint32_t amb0 =
+      __funnelshift_r(sa[u0 >> 5], sa[(u0 >> 5) + 1], u0 & 31) & amask;
+  keep(amb0 ? kSentinel : tm_hash(min(fwd, rct >> down)));
+  // k-mer i > 0 rolls in character i + k - 1
+  for (int i = 1; i < n_kmers; i += 16) {
+    const int v = u0 + i + k - 1, va = u0 + i;
+    const uint32_t codes =
+        __funnelshift_r(sp[v >> 4], sp[(v >> 4) + 1], 2 * (v & 15));
+    // bit q: k-mer i + q touches an ambiguous character or lies past
+    // the window
+    uint32_t bad = any_in_span(
+        __funnelshift_r(sa[va >> 5], sa[(va >> 5) + 1], va & 31), k);
+    if (n_kmers - i < 16) bad |= ~0u << (n_kmers - i);
+    // the complements enter the reverse strand at its top: rct is rc
+    // shifted up to bit 31, a funnel shift a character
+    const uint32_t ncodes = ~codes;
+    uint32_t h[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      fwd = ((fwd << 2) & kmask) | ((codes >> (2 * q)) & 3u);
+      rct = __funnelshift_r(rct, ncodes >> (2 * q), 2);
+      // all ones (the sentinel) where the k-mer is not valid
+      const uint32_t invalid = 0u - ((bad >> q) & 1u);
+      h[q] = tm_hash(min(fwd, rct >> down)) | invalid;
+    }
+    if (kExact) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) keep(h[q]);
+    } else {
+      sort16(h);
+      // the lower half of a bitonic merge of sk with the batch (padded
+      // with sentinels to kCap): bitonic, and the kCap smallest
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        sk[kCap - 16 + q] = min(sk[kCap - 16 + q], h[15 - q]);
+#pragma unroll
+      for (int stride = kCap >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kCap; ++r)
+          if ((r ^ stride) > r) compare_exchange(sk[r], sk[r ^ stride]);
+      }
+    }
+  }
+}
+
+// The build's window sketch, a block per run of nw consecutive windows
+// (tasks) of a batch of whole records (window w of record r as in
+// sketch_windows_kernel). The block stages every 16-byte chunk of seq
+// that its windows cover, once: each window's chunk range [ca, cb)
+// either extends the previous window's (the same record, adjacent or
+// overlapping) or starts a run of its own, so a block-wide prefix sum
+// gives every chunk its place and every window its first chunk. Then
+// thread j sketches window j alone, its sketch sorted in kCap >= s
+// registers, and the block writes its nw rows of s values at once.
+template <int kCap>
+__global__ void __launch_bounds__(kSpanThreads)
+    sketch_span_kernel(const uint8_t* __restrict__ seq,
+                       const int64_t* __restrict__ rec_off,
+                       const int64_t* __restrict__ rec_len,
+                       const int64_t* __restrict__ win_off, int n_rec,
+                       long long n_win, int k, int s, int W, int stride,
+                       int nw, uint32_t* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  const SpanLayout lay(nw, W, s);
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem);
+  unsigned long long* s_ca =
+      reinterpret_cast<unsigned long long*>(base + lay.ca);
+  unsigned long long* s_cb =
+      reinterpret_cast<unsigned long long*>(base + lay.cb);
+  unsigned long long* s_run =
+      reinterpret_cast<unsigned long long*>(base + lay.run);
+  int* s_end = reinterpret_cast<int*>(base + lay.end);
+  int* s_warp = reinterpret_cast<int*>(base + lay.warp);
+  uint32_t* sp = reinterpret_cast<uint32_t*>(base + lay.packed);
+  uint16_t* sa16 = reinterpret_cast<uint16_t*>(base + lay.ambig);
+  const uint32_t* sa = reinterpret_cast<const uint32_t*>(sa16);
+  uint32_t* rows = reinterpret_cast<uint32_t*>(base + lay.rows);
+  constexpr unsigned long long kNone = ~0ull;
+
+  const int j = threadIdx.x;
+  const int lane = j & 31, warp = j >> 5;
+  const long long t0 = static_cast<long long>(blockIdx.x) * nw;
+  const bool mine = j < nw && t0 + j < n_win;
+  const uintptr_t seq_addr = reinterpret_cast<uintptr_t>(seq);
+  // this thread's window: its first character (an address) and length
+  uintptr_t first = 0;
+  int wlen = 0;
+  if (mine) {
+    const long long task = t0 + j;
+    int lo = 0, hi = n_rec - 1;  // the last r with win_off[r] <= task
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (win_off[mid] <= task) lo = mid; else hi = mid - 1;
+    }
+    const long long wstart = (task - win_off[lo]) * stride;
+    wlen = static_cast<int>(
+        min(static_cast<long long>(W), rec_len[lo] - wstart));
+    first = seq_addr + rec_off[lo] + wstart;
+  }
+  const int n_kmers = wlen - k + 1;
+  // the window's 16-byte chunks; a window without a k-mer needs none
+  unsigned long long ca = kNone, cb = kNone;
+  if (n_kmers > 0) {
+    ca = first >> 4;
+    cb = (first + wlen + 15) >> 4;
+  }
+  if (j < nw) {
+    s_ca[j] = ca;
+    s_cb[j] = cb;
+  }
+  __syncthreads();
+  int added = 0;  // the chunks this window adds to the staged runs
+  bool starts_run = false;
+  if (n_kmers > 0) {
+    const unsigned long long pa = j > 0 ? s_ca[j - 1] : kNone;
+    const unsigned long long pb = j > 0 ? s_cb[j - 1] : kNone;
+    const bool extend = pa != kNone && pa <= ca && ca <= pb && pb <= cb;
+    added = static_cast<int>(extend ? cb - pb : cb - ca);
+    starts_run = !extend;
+    if (starts_run) *s_run = ca;  // read only where one window starts one
+  }
+  // block-wide inclusive prefix sum of `added`
+  int end = added;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, end, d);
+    if (lane >= d) end += v;
+  }
+  if (lane == 31) s_warp[warp] = end;
+  const int runs = __syncthreads_count(starts_run);
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kSpanThreads / 32; ++w) {
+    const int v = s_warp[w];
+    if (w < warp) end += v;
+    total += v;
+  }
+  if (j < nw) s_end[j] = end;
+  __syncthreads();
+
+  // stage kStaged chunks a thread at a time, their loads all in flight:
+  // chunk c is the one run's chunk c, or it belongs to the first window
+  // whose end passes it
+  const unsigned long long run0 = *s_run;
+  for (int c0 = 0; c0 < total; c0 += kSpanThreads * kStaged) {
+    uint4 v[kStaged];
+#pragma unroll
+    for (int u = 0; u < kStaged; ++u) {
+      const int c = c0 + u * kSpanThreads + j;
+      if (c < total) {
+        unsigned long long chunk = run0 + c;
+        if (runs != 1) {
+          int lo = 0, hi = nw - 1;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (s_end[mid] > c) hi = mid; else lo = mid + 1;
+          }
+          chunk = s_cb[lo] - static_cast<unsigned long long>(s_end[lo] - c);
+        }
+        v[u] = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<uintptr_t>(chunk << 4)));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStaged; ++u) {
+      const int c = c0 + u * kSpanThreads + j;
+      if (c < total) {
+        uint32_t packed, amb;
+        encode_chunk(v[u], packed, amb);
+        sp[c] = packed;
+        sa16[c] = static_cast<uint16_t>(amb);
+      }
+    }
+  }
+  __syncthreads();
+
+  uint32_t sk[kCap];  // the kCap smallest distinct hashes, ascending
+#pragma unroll
+  for (int r = 0; r < kCap; ++r) sk[r] = kSentinel;
+  if (n_kmers > 0) {
+    // staged place of the window's first character
+    const int u0 = (end - static_cast<int>(cb - ca)) * 16 +
+                   static_cast<int>(first & 15);
+    sketch_window<kCap, false>(sp, sa, u0, n_kmers, k, sk);
+    // equal kept values (a k-mer repeated in the window): redo exactly
+    bool dup = false;
+#pragma unroll
+    for (int r = 0; r < kCap - 1; ++r)
+      dup |= sk[r] == sk[r + 1] && sk[r] != kSentinel;
+    if (dup) {
+#pragma unroll
+      for (int r = 0; r < kCap; ++r) sk[r] = kSentinel;
+      sketch_window<kCap, true>(sp, sa, u0, n_kmers, k, sk);
+    }
+  }
+  __syncthreads();  // every staged word is read: the rows take the region
+  if (mine) {
+#pragma unroll
+    for (int r = 0; r < kCap; ++r)
+      if (r < s) rows[j * (s + 1) + r] = sk[r];
+  }
+  __syncthreads();
+  const long long n_rows = min(static_cast<long long>(nw), n_win - t0);
+  const int n_out = static_cast<int>(n_rows) * s;
+  uint32_t* orow = out + static_cast<size_t>(t0) * s;
+  // element e = j + m kSpanThreads of the rows: (row, col) advanced by
+  // (drow, dcol) a step, no division in the loop
+  const int drow = kSpanThreads / s, dcol = kSpanThreads - drow * s;
+  int row = j / s, col = j - row * s;
+  for (int e = j; e < n_out; e += kSpanThreads) {
+    orow[e] = rows[row * (s + 1) + col];
+    row += drow;
+    col += dcol;
+    if (col >= s) {
+      col -= s;
+      ++row;
+    }
+  }
+}
+
 template <int kSlots>
 cudaError_t launch(const void* packed, const void* ambig, const void* lens,
                    const void* starts, void* out, int B, int P4, int P8,
@@ -388,6 +784,31 @@ cudaError_t launch_windows(const void* seq, const void* rec_off,
   return cudaGetLastError();
 }
 
+// Windows a span block takes for window length W and sketch size s: 128,
+// or fewer where their staging room would pass kSpanSmem; 0 if even one
+// window's does.
+int span_windows(int W, int s) {
+  if (W > 64 * 1024) return 0;
+  int nw = kSpanThreads;
+  while (nw > 0 && SpanLayout(nw, W, s).bytes > kSpanSmem) --nw;
+  return nw;
+}
+
+template <int kCap>
+cudaError_t launch_span(const void* seq, const void* rec_off,
+                        const void* rec_len, const void* win_off, int n_rec,
+                        long long n_win, int k, int s, int W, int stride,
+                        int nw, void* out, cudaStream_t stream) {
+  const long long blocks = (n_win + nw - 1) / nw;
+  sketch_span_kernel<kCap><<<static_cast<unsigned>(blocks), kSpanThreads,
+                             SpanLayout(nw, W, s).bytes, stream>>>(
+      static_cast<const uint8_t*>(seq), static_cast<const int64_t*>(rec_off),
+      static_cast<const int64_t*>(rec_len),
+      static_cast<const int64_t*>(win_off), n_rec, n_win, k, s, W, stride,
+      nw, static_cast<uint32_t*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // seq [bytes] u8 (ASCII), rec_off / rec_len [n_rec] i64, win_off
@@ -404,6 +825,20 @@ extern "C" int mc_sketch_windows(const void* seq, const void* rec_off,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_win == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nw = s <= 64 ? span_windows(W, s) : 0;
+  if (nw > 0) {
+    if (s <= 16)
+      return static_cast<int>(launch_span<16>(seq, rec_off, rec_len, win_off,
+                                              n_rec, n_win, k, s, W, stride,
+                                              nw, out, st));
+    if (s <= 32)
+      return static_cast<int>(launch_span<32>(seq, rec_off, rec_len, win_off,
+                                              n_rec, n_win, k, s, W, stride,
+                                              nw, out, st));
+    return static_cast<int>(launch_span<64>(seq, rec_off, rec_len, win_off,
+                                            n_rec, n_win, k, s, W, stride, nw,
+                                            out, st));
+  }
   if (s <= 32)
     return static_cast<int>(launch_windows<1>(seq, rec_off, rec_len, win_off,
                                               n_rec, n_win, k, s, W, stride,

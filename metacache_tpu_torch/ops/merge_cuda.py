@@ -21,10 +21,12 @@ count_launches = 0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    lib.mc_merge_scratch_bytes.restype = ctypes.c_longlong
+    lib.mc_merge_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
     lib.mc_merge_locations.restype = ctypes.c_int
     lib.mc_merge_locations.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_void_p] * 3)
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p] * 4)
     lib.mc_merge_count_keys.restype = ctypes.c_int
     lib.mc_merge_count_keys.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong]
@@ -47,7 +49,9 @@ def merge_chunk(keys: torch.Tensor, offs: torch.Tensor, tgt: torch.Tensor,
                 out_loc: torch.Tensor) -> torch.Tensor:
     """One chunk of P shard tables merged (ops/merge.py has the layout):
     writes the packed locations in the fused order into out_loc [NL] int64
-    and returns their keys [NL] int32 (u32 bits)."""
+    and returns their keys [NL] int32 (u32 bits). On the card the kernels
+    take a scratch buffer (the partition and the locations' keys; for
+    P > 2 also the rounds' outputs), allocated here for the call."""
     global merge_launches
     if keys.device.type == "cpu":
         loc, key = merge_chunk_reference(keys, offs, tgt, win, bounds)
@@ -69,10 +73,13 @@ def merge_chunk(keys: torch.Tensor, offs: torch.Tensor, tgt: torch.Tensor,
            and out_loc.numel() == nl, **all_)
     out_key = torch.empty(nl, dtype=torch.int32, device=keys.device)
     if nl:
-        launch(d, LIBRARY.load().mc_merge_locations, keys.data_ptr(),
-               offs.data_ptr(), tgt.data_ptr(), win.data_ptr(),
-               bounds.data_ptr(), P, nl, out_loc.data_ptr(),
-               out_key.data_ptr())
+        lib = LIBRARY.load()
+        scratch = torch.empty(lib.mc_merge_scratch_bytes(P, nl),
+                              dtype=torch.uint8, device=keys.device)
+        launch(d, lib.mc_merge_locations, keys.data_ptr(), offs.data_ptr(),
+               tgt.data_ptr(), win.data_ptr(), bounds.data_ptr(), P,
+               keys.numel(), nl, out_loc.data_ptr(), out_key.data_ptr(),
+               scratch.data_ptr())
         merge_launches += 1
     return out_key
 

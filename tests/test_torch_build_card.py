@@ -250,22 +250,31 @@ def test_store_sorts_u32_features_on_either_side_of_2_31():
     assert want.keys[-1] == 2**32 - 1 and want.bucket_sizes().max() == 254
 
 
-def test_window_sketch_plain_equals_jax_sketch():
-    """The window sketch's plain version on whole records (ambiguous
-    bytes, lower case, tail windows, records shorter than a window and
-    than k) equals the JAX package's sketch_windows of the same windows
-    cut out on the host."""
+@pytest.mark.parametrize("records", ["mixed", "low_complexity"])
+def test_window_sketch_plain_equals_jax_sketch(records):
+    """The window sketch's plain version on whole records equals the JAX
+    package's sketch_windows of the same windows cut out on the host:
+    mixed records (ambiguous bytes, lower case, tail windows, records
+    shorter than a window and than k), and low-complexity ones (poly-A,
+    short-period repeats, N runs, windows with fewer than s distinct or
+    valid k-mers: tests/test_torch_cuda.py's, which hold the window
+    kernel to this version on the card)."""
     import jax.numpy as jnp
     from metacache_tpu.ops.sketch import sketch_windows as jax_sketch
     from metacache_tpu_torch.db.build import _num_windows
     from metacache_tpu_torch.ops import encode, sketch_cuda
+    from tests.test_torch_cuda import low_complexity_records
     rng = np.random.default_rng(9)
-    alphabet = np.frombuffer(b"ACGTacgtNRY", np.uint8)
-    lens = np.array([700, 5, 128, 129, 241, 90, 1000], np.int64)
-    recs = [alphabet[rng.choice(11, n, p=[.2] * 4 + [.02] * 4 + [.04] * 3)]
-            for n in lens]
-    seq = np.concatenate(recs)
-    off = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    if records == "mixed":
+        alphabet = np.frombuffer(b"ACGTacgtNRY", np.uint8)
+        lens = np.array([700, 5, 128, 129, 241, 90, 1000], np.int64)
+        seq = np.concatenate([
+            alphabet[rng.choice(11, n, p=[.2] * 4 + [.02] * 4 + [.04] * 3)]
+            for n in lens])
+        off = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    else:
+        seq, off, lens = low_complexity_records(9)
+    recs = [seq[o:o + n] for o, n in zip(off, lens)]
     nwin = _num_windows(lens, W, STRIDE)
     win_off = np.concatenate([[0], np.cumsum(nwin)])
     for k, s in ((16, 16), (9, 40)):
@@ -287,7 +296,9 @@ def test_window_sketch_plain_equals_jax_sketch():
                                      k, s))
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.astype(np.uint32))
-    assert (got == -1).all(axis=1).any()      # the record shorter than k
+    assert (got == -1).all(axis=1).any()      # a record shorter than k
+    if records == "low_complexity":           # poly-A: one value
+        assert ((got != -1).sum(axis=1) == 1).any()
 
 
 def test_record_stream_batches_whole_records(tmp_path):

@@ -66,6 +66,65 @@ def random_shards(rng, P, n_keys, max_bucket=8, pairs=64):
     return out
 
 
+def giant_bucket_shards(rng, P, n_keys, giant):
+    """random_shards' tables, plus one key that every shard holds with a
+    bucket of `giant` locations (wider than a merge tile of the kernel,
+    2048, where giant is larger), its pairs drawn from a space of 64 (so
+    triples tie across shards)."""
+    from metacache_tpu_torch.db.feature_table import FeatureTable
+    out = []
+    for t in random_shards(rng, P, n_keys):
+        key = np.uint32(2 * n_keys + 7)     # above every random key but
+        at = len(t.keys) - 1                # the top one
+        pair = np.sort(rng.integers(0, 64, giant))
+        sizes = np.diff(t.offsets)
+        out.append(FeatureTable(
+            keys=np.insert(t.keys, at, key),
+            offsets=np.concatenate([[0], np.cumsum(np.insert(sizes, at,
+                                                             giant))]),
+            loc_tgt=np.insert(t.loc_tgt, t.offsets[at],
+                              (pair // 8).astype(np.int32)),
+            loc_win=np.insert(t.loc_win, t.offsets[at],
+                              (pair % 8).astype(np.int32))))
+    return out
+
+
+def tied_shards(rng, P, n_keys):
+    """P copies of one random table: every (key, target, window) triple
+    is in every shard, so the whole merge is ties."""
+    return random_shards(rng, 1, n_keys) * P
+
+
+def low_complexity_records(seed):
+    """Whole ASCII records whose windows hold few distinct or few valid
+    k-mers: a poly-A run, a dinucleotide repeat, a period-7 repeat, an
+    N run, a period-20 repeat with an N in each period (4 valid k-mers
+    of 16 per period, all equal across periods), lower case, and random
+    bases with those runs spliced in. No record's window count is a
+    multiple of 128 (a span block's windows), nor is the total ->
+    (seq, rec_off, rec_len) host arrays."""
+    rng = np.random.default_rng(seed)
+    units = [b"A", b"AC", b"ACGTTGA", b"N", b"ACGTTGCAACGTTGCAAGTN",
+             b"acacacgt"]
+    lens = [1007, 300, 129, 17, 5000, 2500, 700, 113 * 5 + 15, 3, 16,
+            128 * 113 + 55]
+    recs = []
+    for i, n in enumerate(lens):
+        unit = units[i % len(units)]
+        r = np.frombuffer((unit * (n // len(unit) + 1))[:n], np.uint8)
+        if i >= len(units):
+            r = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+            for u in units:
+                at = int(rng.integers(0, n))
+                run = np.frombuffer(u * 40, np.uint8)[:n - at]
+                r[at:at + len(run)] = run
+        recs.append(r.copy())
+    lens = np.asarray(lens, np.int64)
+    off = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=off[1:])
+    return np.concatenate(recs), off, lens
+
+
 @pytest.mark.parametrize("B,L", [(1, 64), (37, 104), (1007, 256),
                                  (4096, 320)])
 @pytest.mark.parametrize("k", [1, 7, 12, 16])
@@ -147,6 +206,32 @@ def test_window_kernel_matches_plain(dev, k, s, W, stride):
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         sketch_cuda.sketch_windows(args[0], args[1].int(), *args[2:], **kw)
+
+
+@pytest.mark.parametrize("k,s,W,stride", [
+    (16, 16, 128, 113), (16, 64, 128, 113), (7, 20, 128, 113),
+    (4, 8, 128, 113), (16, 16, 40, 7), (16, 100, 128, 113)])
+def test_window_kernel_low_complexity(dev, k, s, W, stride):
+    """The window kernel equals its plain version bit for bit where a
+    window's sketch is short of s values: poly-A (one distinct k-mer),
+    repeats of period 2, 7 and 20, N runs, few valid k-mers, in block
+    counts that leave the last span block part-filled."""
+    from metacache_tpu_torch.db.build import _num_windows
+    from metacache_tpu_torch.ops.sketch import sketch_windows_reference
+    seq, off, rlen = low_complexity_records(k * 100 + s)
+    nwin = _num_windows(rlen, W, stride)
+    assert (nwin % 128 != 0).all() and nwin.sum() % 128 != 0
+    win_off = np.zeros(len(rlen) + 1, np.int64)
+    np.cumsum(nwin, out=win_off[1:])
+    args = [torch.from_numpy(x).to(dev) for x in (seq, off, rlen, win_off)]
+    kw = dict(n_windows=int(win_off[-1]), k=k, sketch_size=s, window_size=W,
+              stride=stride)
+    got = sketch_cuda.sketch_windows(*args, **kw)
+    want = sketch_windows_reference(*args, **kw)
+    assert torch.equal(got, want)
+    filled = (want != -1).sum(dim=1)
+    assert (filled == 0).any() and (filled == 1).any()   # N run, poly-A
+    assert ((filled > 1) & (filled < s)).any()
 
 
 def card_world(tmp_path):
@@ -482,6 +567,48 @@ def test_merge_kernels_match_plain(dev, monkeypatch, P, n_keys, cap):
                                                    c.win, c.bounds)
         assert torch.equal(loc, want_loc) and torch.equal(key, want_key)
         assert int(count) == count_keys_reference(c.keys)
+    with upload.Stager(dev) as stager:
+        got = upload.merged_feature_tables(stager, tables)
+    want = upload.merged_feature_tables(upload.Stager(torch.device("cpu")),
+                                        tables)
+    for name, w in want.items():
+        assert torch.equal(got[name].cpu(), w), name
+
+
+@pytest.mark.parametrize("case", ["giant_bucket", "all_ties",
+                                  "empty_shard", "P3", "P4"])
+def test_merge_kernel_edges(dev, case):
+    """The merge kernel bit for bit against its plain version on one
+    chunk: a bucket wider than a merge tile in every shard, a chunk of
+    nothing but ties, a shard with no keys in the chunk, 3 and 4 shards
+    (two merge rounds); then the streamed merge of the same tables on the
+    card against the CPU's."""
+    from metacache_tpu_torch.db.feature_table import FeatureTable
+    from metacache_tpu_torch.ops import merge_cuda
+    from metacache_tpu_torch.ops.merge import merge_chunk_reference
+    from metacache_tpu_torch.query import upload
+    rng = np.random.default_rng(len(case))
+    if case == "giant_bucket":
+        tables = giant_bucket_shards(rng, 2, 3000, 5000)
+    elif case == "all_ties":
+        tables = tied_shards(rng, 2, 4000)
+    elif case == "empty_shard":
+        tables = random_shards(rng, 3, 3000)
+        tables[1] = FeatureTable(keys=np.zeros(0, np.uint32),
+                                 offsets=np.zeros(1, np.int64),
+                                 loc_tgt=np.zeros(0, np.int32),
+                                 loc_win=np.zeros(0, np.int32))
+    else:
+        tables = giant_bucket_shards(rng, int(case[1]), 2000, 2100)
+    (begin, end), = upload.plan_chunks(tables, 1 << 24)
+    with upload.Stager(dev) as stager:
+        c = upload._Chunk(stager, tables, begin, end, locations=True)
+        stager.ready()
+    loc = torch.empty(c.nl, dtype=torch.int64, device=dev)
+    key = merge_cuda.merge_chunk(c.keys, c.offs, c.tgt, c.win, c.bounds, loc)
+    want_loc, want_key = merge_chunk_reference(c.keys, c.offs, c.tgt, c.win,
+                                               c.bounds)
+    assert torch.equal(loc, want_loc) and torch.equal(key, want_key)
     with upload.Stager(dev) as stager:
         got = upload.merged_feature_tables(stager, tables)
     want = upload.merged_feature_tables(upload.Stager(torch.device("cpu")),

@@ -5,8 +5,9 @@ and its plain version ops/merge.py), held on the CPU at toy size:
 - the chunked merge equals the host merge (native.merge_shard_tables)
   array for array on random shard tables of 2, 3 and 4 shards that share
   keys, leave a shard without keys in some chunks and hold equal
-  (target, window) pairs in several shards (the tie rule), with chunks
-  cut every few keys;
+  (target, window) pairs in several shards (the tie rule), on tables
+  with a bucket wider than a chunk in every shard, and on tables that
+  are all ties, with chunks cut every few keys;
 - the streamed fused tables equal the host-merged database's tables
   tensor for tensor on the multi-shard worlds of test_torch_scale.py and
   test_torch_mesh_one_device.py;
@@ -68,11 +69,28 @@ def assert_tables_equal(got, want):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("cap", [9, 40, 1 << 24])
-@pytest.mark.parametrize("P", [2, 3, 4])
-def test_chunked_merge_equals_host_merge(P, cap, monkeypatch):
+#: (tables, P, cap) cases; the random tables keep their ids "P-cap"
+MERGE_CASES = [pytest.param(t, P, cap, id=f"{P}-{cap}" if t == "random"
+                            else f"{t}-{P}-{cap}")
+               for t in ("random", "giant_bucket", "all_ties")
+               for cap in (9, 40, 1 << 24) for P in (2, 3, 4)]
+
+
+@pytest.mark.parametrize("tables,P,cap", MERGE_CASES)
+def test_chunked_merge_equals_host_merge(tables, P, cap, monkeypatch):
+    """Random tables; tables with one key whose bucket holds 3,000
+    locations in every shard (wider than any cap here and than a merge
+    tile of the kernel); and P copies of one table (every triple tied
+    across the shards)."""
     monkeypatch.setattr(upload, "CHUNK", cap)
-    tables = random_shards(P, seed=10 * P + cap % 7)
+    seed = 10 * P + cap % 7
+    if tables == "random":
+        tables = random_shards(P, seed=seed)
+    elif tables == "giant_bucket":
+        tables = cuda_tests.giant_bucket_shards(
+            np.random.default_rng(seed), P, 60, 3000)
+    else:
+        tables = cuda_tests.tied_shards(np.random.default_rng(seed), P, 60)
     want = host_merged(tables)
     # a chunk holds at most cap locations, or one key's bucket
     total, widest = want["offsets"][-1], np.diff(want["offsets"]).max()
