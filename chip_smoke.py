@@ -20,7 +20,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      cost), its call time (CUDA events
      over back-to-back calls from Python, host launch cost included), the
      plain version's call time, the one library call that computes the
-     same function where there is one (table[idx] for the gather), the
+     same function where there is one (table[idx] for the gather; for
+     the merge's key count a torch.searchsorted formulation, with
+     torch.unique's call time beside it), the
      bound (bytes over the HBM rate or operations over the issue rate,
      counted from the inputs) and the share of it. Also timed at the
      main path's shapes without the config-3 world, from fixed seeds:
@@ -378,18 +380,18 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timed(name, fn, plain, library, bound_ms, bound_by,
-          library_in_graph=True):
-    """Times of one kernel at one shape, printed with its bound. A library
-    call that waits for the card (its output's size) cannot be captured
-    in a CUDA graph: library_in_graph=False leaves its device time out."""
+def timed(name, fn, plain, library, bound_ms, bound_by, calls=None):
+    """Times of one kernel at one shape, printed with its bound; `calls`
+    names further callables whose call time the row carries too (e.g. a
+    library call that waits for the card and so has no graph time)."""
     res = dict(ms=call_ms(fn), device_ms=device_ms(fn),
                plain_ms=call_ms(plain, 3),
                library_ms=None if library is None else call_ms(library),
-               library_device_ms=device_ms(library)
-               if library is not None and library_in_graph else None,
+               library_device_ms=None if library is None
+               else device_ms(library),
                bound_ms=bound_ms, bound_by=bound_by)
     res["share_of_bound"] = bound_ms / res["device_ms"]
+    res.update({k: call_ms(f) for k, f in (calls or {}).items()})
     say(name, **{k: ("none" if v is None else
                      f"{v:.6f}" if isinstance(v, float) else v)
                  for k, v in res.items()})
@@ -1618,6 +1620,26 @@ def merge_bound(chunk):
                  + 12 * chunk.nl, 0)
 
 
+#: what the merge count's library row times on a 2-shard chunk: PyTorch
+#: calls that never wait for the card, so a CUDA graph holds them and
+#: gives their device time (torch.unique's call time is kept beside it as
+#: unique_ms)
+COUNT_LIBRARY = ("keys widened to int64 and masked to u32; torch."
+                 "searchsorted of shard 1's keys in shard 0's, gather, "
+                 "compare; the keys less the equal pairs")
+
+
+def library_count(keys, first):
+    """COUNT_LIBRARY: the distinct keys of a 2-shard chunk whose shard 1
+    starts at key `first` (both shards non-empty), as a 0-d tensor on
+    the keys' device."""
+    import torch
+    wide = keys.long() & 0xFFFFFFFF
+    lower, higher = wide[:first], wide[first:]
+    at = torch.searchsorted(lower, higher).clamp_(max=first - 1)
+    return keys.numel() - (lower[at] == higher).sum()
+
+
 def time_merge(c, name):
     """Both merge kernels on one chunk (keys, offs, tgt, win, bounds on the
     card): bit-equal to their plain versions, and timed."""
@@ -1634,12 +1656,17 @@ def time_merge(c, name):
     want_loc, want_key = merge_chunk_reference(*args)
     err = int((loc != want_loc).sum()) + int((key != want_key).sum())
     del want_loc, want_key
-    count_err = abs(int(count) - count_keys_reference(c.keys))
+    want_count = count_keys_reference(c.keys)
+    count_err = abs(int(count) - want_count)
+    kbeg = c.bounds[0].tolist()
+    P = len(kbeg) - 1
     check(err == 0, f"merge kernel differs from plain in {err} elements "
                     f"({name} chunk)")
     check(count_err == 0, f"merge count kernel differs from plain by "
                           f"{count_err} ({name} chunk)")
-    P = c.bounds.shape[1] - 1
+    check(P == 2 and 0 < kbeg[1] < kbeg[2]
+          and int(library_count(c.keys, kbeg[1])) == want_count,
+          f"the count's library yardstick is wrong ({name} chunk)")
     name = f"{name}_P{P}_NK{c.keys.numel()}_NL{c.nl}"
     res = timed(f"merge_shards_{name}",
                 lambda: merge_cuda.merge_chunk(*args, loc),
@@ -1648,11 +1675,12 @@ def time_merge(c, name):
     counted = timed(f"merge_count_{name}",
                     lambda: merge_cuda.count_keys(c.keys, c.bounds, count),
                     lambda: count_keys_reference(c.keys),
-                    lambda: torch.unique(c.keys),
+                    lambda: library_count(c.keys, kbeg[1]),
                     *bound(4 * c.keys.numel() + 16 * (P + 1) + 8, 0),
-                    library_in_graph=False)
+                    calls={"unique_ms": lambda: torch.unique(c.keys)})
     return {"merge_shards": dict(res, err=err, shape=name),
-            "merge_count": dict(counted, err=count_err, shape=name)}
+            "merge_count": dict(counted, err=count_err, shape=name,
+                                library=COUNT_LIBRARY)}
 
 
 def merge_at(tables, first):
@@ -1863,8 +1891,13 @@ def kernels_json(sketch, gather, merge, windows):
     # timed on the first real chunk of the fused config-3 query, and on
     # the seeded chunk under seeded_*; its edge cases (3 and 4 shards,
     # ties) count in max_abs_err
+    # the count's row also names its library formulation and carries
+    # torch.unique's call time (unique_ms, seeded_unique_ms)
     for name in ("merge_shards", "merge_count"):
         res, sd = merge[name], merge["seeded"][name]
+        extra = {k: res[k] for k in ("library", "unique_ms") if k in res}
+        if "unique_ms" in sd:
+            extra["seeded_unique_ms"] = sd["unique_ms"]
         rows.append(dict(
             name=name, route="cuda",
             source="metacache_tpu_torch/csrc/merge.cu", replaces=HOST_MERGE,
@@ -1872,7 +1905,7 @@ def kernels_json(sketch, gather, merge, windows):
             max_abs_err=max(res["err"], sd["err"],
                             merge["seeded"]["edges_err"]),
             shape=res["shape"], **{k: res[k] for k in TIMES},
-            **seeded_times(sd)))
+            **extra, **seeded_times(sd)))
     return {"kernels": rows}
 
 

@@ -56,10 +56,29 @@
 // chunk (chip_smoke.py, PERF.md): 0.293 ms, 43.6% of its 0.1275 ms
 // bound (the first design: 0.900 ms).
 //
-// mc_merge_count_keys: one thread per key, a binary search in every
-// lower shard's keys: a key counts unless a lower shard holds it too.
-// Summed over the chunks it sizes the fused key table before anything
-// else is allocated.
+// mc_merge_count_keys: the chunk's keys that no lower shard holds (all of
+// shard 0's, and each higher shard's keys absent from the shards before
+// it). Summed over the chunks it sizes the fused key table before
+// anything else is allocated. What bounds it: device-memory bytes, 4 per
+// key read. The first design gave each key a thread that binary-searched
+// every lower shard's keys: ~22 dependent loads a key, repeated by
+// neighbours that share the upper levels; 0.180 ms on the seeded
+// config-3 chunk, 5.1% of the bound. Redesigned as co-ranked tiles
+// (merge_count_keys_kernel, one kernel for every P): a block takes tiles
+// of 2,048 keys of shards 1..P-1, 8 a thread, loaded coalesced; per
+// lower shard two warp-wide 32-way searches (~6 dependent loads, not
+// ~22) find the range of that shard's keys between the tile's first and
+// last key, and the block stages the range in shared memory, coalesced,
+// 4,096 keys at a time (a denser lower shard takes several pieces),
+// padded to a power of two so that each thread looks its keys up by a
+// branch-free search of 11-12 steps, each one load at a constant
+// offset, a compare and a select. For P = 2 every key of the chunk is
+// read about once. One atomic per block; no scratch. Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W on the seeded chunk (chip_smoke.py
+// --kernel-times, PERF.md): 0.0204 ms, 44.6% of its 0.00908 ms bound.
+// What holds it there: each block takes two or three tiles one after the
+// other, each behind its searches' dependent loads, and the lookups'
+// 12 shared-memory steps a key.
 //
 // There is no TPU kernel to replace: the JAX package merges shards on the
 // host (metacache_tpu/native/mcio.cpp, mcio_merge_shard_tables), as the
@@ -82,18 +101,6 @@ __device__ __forceinline__ int shard_of(const long long* beg, long long i) {
   int s = 0;
   while (beg[s + 1] <= i) ++s;
   return s;
-}
-
-// First j in [0, n) with keys[j] >= k, or n.
-__device__ __forceinline__ long long lower_bound(
-    const unsigned* __restrict__ keys, long long n, unsigned k) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < k) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
 }
 
 // ---- the location merge: expand, partition, merge tiles ----
@@ -294,27 +301,133 @@ int merge_rounds(int P) {
 
 long long round_up(long long bytes) { return (bytes + 255) & ~255ll; }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- the key count: co-ranked tiles over the higher shards ----
+
+constexpr int kCountThreads = 256;
+constexpr int kCountItems = 8;  // keys of its tile a thread holds
+constexpr int kCountTile = kCountThreads * kCountItems;
+constexpr int kPiece = 2 * kCountTile;  // keys of a lower shard staged at once
+
+// First j in [lo, hi) with keys[j] > k (strict) or keys[j] >= k (u32
+// order), else hi. Called by a whole warp: each step probes 32 evenly
+// spaced keys and keeps the slice where the answer lies, so ~22 dependent
+// loads become ~5; every lane returns the answer.
+__device__ __forceinline__ long long warp_search(
+    const unsigned* __restrict__ keys, long long lo, long long hi, unsigned k,
+    bool strict) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 32) {
+    const long long len = hi - lo;
+    const unsigned v = __ldg(keys + lo + len * (lane + 1) / 32 - 1);
+    const unsigned past =
+        __ballot_sync(0xffffffffu, strict ? v > k : v >= k);
+    if (!past) return hi;
+    const int f = __ffs(past) - 1;
+    hi = lo + len * (f + 1) / 32 - 1;  // a key past k: the answer <= hi
+    lo += len * f / 32;
+  }
+  const bool in = lo + lane < hi;
+  const unsigned v = in ? __ldg(keys + lo + lane) : 0u;
+  const unsigned past =
+      __ballot_sync(0xffffffffu, in && (strict ? v > k : v >= k));
+  return past ? lo + __ffs(past) - 1 : hi;
+}
+
+// Per key, the last position in piece[0, W) whose key is <= it (0 if
+// none is): a branch-free binary search of log2(W) steps, each one load
+// at a constant offset, a compare and a select. W is a power of two.
+template <int W>
+__device__ __forceinline__ void last_not_above(const unsigned* piece,
+                                               const unsigned (&k)[kCountItems],
+                                               int (&at)[kCountItems]) {
+#pragma unroll
+  for (int i = 0; i < kCountItems; ++i) at[i] = 0;
+#pragma unroll
+  for (int half = W / 2; half > 0; half >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kCountItems; ++i)
+      at[i] += piece[at[i] + half] <= k[i] ? half : 0;
+  }
+}
+
+// Tiles of kCountTile keys over the keys of shards 1..P-1 (the keys from
+// kbeg[1] on), taken by the blocks in turn. A tile's segment of shard s
+// (a tile may straddle shards) counts its keys that no shard r < s holds:
+// per r, two warp searches give the range of r's keys between the
+// segment's first and last key, and the block stages that range through
+// shared memory kPiece keys at a time, padded to a power of two with
+// copies of its last key, where each thread searches its keys. Block 0
+// also counts shard 0's keys, which all count.
+__global__ void __launch_bounds__(kCountThreads)
     merge_count_keys_kernel(const unsigned* __restrict__ keys,
                             const long long* __restrict__ kbeg, int P,
                             long long nk,
                             unsigned long long* __restrict__ count) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  bool first = i < nk;
-  if (first) {
-    const int s = shard_of(kbeg, i);
-    const unsigned k = __ldg(keys + i);
-    for (int r = 0; r < s && first; ++r) {
-      const unsigned* kr = keys + kbeg[r];
-      const long long nkr = kbeg[r + 1] - kbeg[r];
-      const long long j = lower_bound(kr, nkr, k);
-      first = !(j < nkr && __ldg(kr + j) == k);
+  __shared__ unsigned piece[kPiece];
+  __shared__ long long range[2];
+  __shared__ unsigned warp_sums[kCountThreads / 32];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  unsigned n = 0;  // this thread's keys that count
+  for (long long t0 = kbeg[1] + static_cast<long long>(blockIdx.x) *
+                                    kCountTile;
+       t0 < nk; t0 += static_cast<long long>(gridDim.x) * kCountTile) {
+    const long long t1 = min(t0 + kCountTile, nk);
+    int s = 1;
+    while (kbeg[s + 1] <= t0) ++s;
+    for (; s < P && kbeg[s] < t1; ++s) {
+      const long long a = max(t0, kbeg[s]), e = min(t1, kbeg[s + 1]);
+      if (a >= e) continue;
+      // item i: key a + tid + i kCountThreads; bit i of `held`: a lower
+      // shard holds it, or it lies past the segment
+      unsigned k[kCountItems];
+      unsigned held = 0;
+#pragma unroll
+      for (int i = 0; i < kCountItems; ++i) {
+        const long long p = a + tid + i * kCountThreads;
+        k[i] = p < e ? __ldg(keys + p) : 0u;
+        held |= static_cast<unsigned>(p >= e) << i;
+      }
+      for (int r = 0; r < s; ++r) {
+        if (warp < 2) {
+          const long long j = warp_search(
+              keys, kbeg[r], kbeg[r + 1], __ldg(keys + (warp ? e - 1 : a)),
+              warp == 1);
+          if ((tid & 31) == 0) range[warp] = j;
+        }
+        __syncthreads();
+        const long long lo = range[0], hi = range[1];
+        __syncthreads();  // read before the next search writes them
+        for (long long p0 = lo; p0 < hi; p0 += kPiece) {
+          const int len = static_cast<int>(min(hi - p0, 1ll * kPiece));
+          const int width = len <= kPiece / 2 ? kPiece / 2 : kPiece;
+          for (int x = tid; x < width; x += kCountThreads)
+            piece[x] = __ldg(keys + p0 + min(x, len - 1));
+          __syncthreads();
+          // a staged key equals k exactly when the piece holds k
+          int at[kCountItems];
+          if (width == kPiece)
+            last_not_above<kPiece>(piece, k, at);
+          else
+            last_not_above<kPiece / 2>(piece, k, at);
+#pragma unroll
+          for (int i = 0; i < kCountItems; ++i)
+            held |= static_cast<unsigned>(piece[at[i]] == k[i]) << i;
+          __syncthreads();  // the piece is read
+        }
+      }
+      n += kCountItems - __popc(held);
     }
   }
-  const unsigned votes = __ballot_sync(0xffffffffu, first);
-  if ((threadIdx.x & 31) == 0 && votes)
-    atomicAdd(count, static_cast<unsigned long long>(__popc(votes)));
+  n = __reduce_add_sync(0xffffffffu, n);
+  if ((tid & 31) == 0) warp_sums[warp] = n;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long total =
+        blockIdx.x == 0 ? static_cast<unsigned long long>(kbeg[1] - kbeg[0])
+                        : 0ull;
+    for (int w = 0; w < kCountThreads / 32; ++w) total += warp_sums[w];
+    if (total) atomicAdd(count, total);
+  }
 }
 
 }  // namespace
@@ -405,8 +518,20 @@ extern "C" int mc_merge_count_keys(const void* keys, const void* kbeg, int P,
                                    long long nk, void* count, void* stream) {
   if (P < 1 || nk < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (nk == 0) return 0;
-  const long long blocks = (nk + kThreads - 1) / kThreads;
-  merge_count_keys_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  // as many blocks as the card holds at once (found once), or one per
+  // tile of the chunk's keys where that is fewer
+  static const int resident = [] {
+    int dev = 0, sms = 132, per = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, merge_count_keys_kernel, kCountThreads, 0);
+    return sms * (per > 0 ? per : 1);
+  }();
+  const long long tiles = (nk + kCountTile - 1) / kCountTile;
+  merge_count_keys_kernel<<<static_cast<unsigned>(
+                                tiles < resident ? tiles : resident),
+                            kCountThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(keys), static_cast<const long long*>(kbeg),
       P, nk, static_cast<unsigned long long*>(count));

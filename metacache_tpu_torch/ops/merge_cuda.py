@@ -87,7 +87,13 @@ def merge_chunk(keys: torch.Tensor, offs: torch.Tensor, tgt: torch.Tensor,
 def count_keys(keys: torch.Tensor, bounds: torch.Tensor,
                count: torch.Tensor) -> None:
     """count [1] int64 += the distinct keys of one chunk (a key several
-    shards hold counts once); bounds as merge_chunk's (row 0 is read)."""
+    shards hold counts once); bounds as merge_chunk's (row 0 is read).
+    On the card one kernel launch (csrc/merge.cu): blocks take tiles of
+    2,048 keys of the higher shards, find each lower shard's keys in the
+    tile's key range by two warp-wide searches, stage them in shared
+    memory and look the tile's keys up there; no scratch. 0.0204 ms on
+    a seeded 2-shard chunk of 7.6 M keys, 44.6% of its bound (NVIDIA H100
+    80GB HBM3, 700 W; PERF.md)."""
     global count_launches
     if keys.device.type == "cpu":
         count += count_keys_reference(keys)

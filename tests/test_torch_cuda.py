@@ -578,14 +578,15 @@ def test_merge_kernels_match_plain(dev, monkeypatch, P, n_keys, cap):
 @pytest.mark.parametrize("case", ["giant_bucket", "all_ties",
                                   "empty_shard", "P3", "P4"])
 def test_merge_kernel_edges(dev, case):
-    """The merge kernel bit for bit against its plain version on one
-    chunk: a bucket wider than a merge tile in every shard, a chunk of
-    nothing but ties, a shard with no keys in the chunk, 3 and 4 shards
-    (two merge rounds); then the streamed merge of the same tables on the
-    card against the CPU's."""
+    """The merge and count kernels bit for bit against their plain
+    versions on one chunk: a bucket wider than a merge tile in every
+    shard, a chunk of nothing but ties, a shard with no keys in the chunk,
+    3 and 4 shards (two merge rounds); then the streamed merge of the same
+    tables on the card against the CPU's."""
     from metacache_tpu_torch.db.feature_table import FeatureTable
     from metacache_tpu_torch.ops import merge_cuda
-    from metacache_tpu_torch.ops.merge import merge_chunk_reference
+    from metacache_tpu_torch.ops.merge import (count_keys_reference,
+                                               merge_chunk_reference)
     from metacache_tpu_torch.query import upload
     rng = np.random.default_rng(len(case))
     if case == "giant_bucket":
@@ -606,15 +607,74 @@ def test_merge_kernel_edges(dev, case):
         stager.ready()
     loc = torch.empty(c.nl, dtype=torch.int64, device=dev)
     key = merge_cuda.merge_chunk(c.keys, c.offs, c.tgt, c.win, c.bounds, loc)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    merge_cuda.count_keys(c.keys, c.bounds, count)
     want_loc, want_key = merge_chunk_reference(c.keys, c.offs, c.tgt, c.win,
                                                c.bounds)
     assert torch.equal(loc, want_loc) and torch.equal(key, want_key)
+    assert int(count) == count_keys_reference(c.keys)
     with upload.Stager(dev) as stager:
         got = upload.merged_feature_tables(stager, tables)
     want = upload.merged_feature_tables(upload.Stager(torch.device("cpu")),
                                         tables)
     for name, w in want.items():
         assert torch.equal(got[name].cpu(), w), name
+
+
+def count_case(rng, case):
+    """Sorted unique u32 key arrays, one per shard, of a count-only case."""
+    def draw(lo, hi, n):
+        return np.unique(rng.integers(lo, hi, n, dtype=np.uint64)).astype(
+            np.uint32)
+    if case == "around_2_31":
+        # every shard's keys straddle 2^31, interleaved with the others'
+        space = np.arange((1 << 31) - 6000, (1 << 31) + 6000,
+                          dtype=np.uint64)
+        return [np.sort(rng.choice(space, 5000, replace=False)).astype(
+            np.uint32) for _ in range(3)]
+    if case == "inside_gap":
+        # the higher shard's keys all lie between two of the lower's
+        return [np.array([3, 0x7FFFFFFF, 0xFFFFFFFF], np.uint32),
+                np.arange(0x80000000, 0x80000000 + 9000, 3, dtype=np.uint32)]
+    if case == "dense_lower":
+        # the lower shard 50x denser over the same range: a tile's range
+        # there spans ~50 tiles' worth of keys (many pieces)
+        lower = draw(0, 1 << 32, 400_000)
+        higher = np.union1d(rng.choice(lower, 4000, replace=False),
+                            draw(0, 1 << 32, 4000))
+        return [lower, higher.astype(np.uint32)]
+    if case == "one_key":
+        return [np.zeros(0, np.uint32), np.array([0xFFFFFFFF], np.uint32)]
+    # P = 5: shared keys, sizes that leave tiles straddling shards, an
+    # empty shard between them
+    space = draw(0, 1 << 32, 30_000)
+    sets = [np.sort(rng.choice(space, n, replace=False))
+            for n in (7_001, 2_500, 0, 12_345, 4_099)]
+    return sets
+
+
+@pytest.mark.parametrize("case", ["around_2_31", "inside_gap",
+                                  "dense_lower", "one_key", "P5"])
+def test_count_kernel_edges(dev, case):
+    """The count kernel bit for bit against its plain version, one launch
+    a call, on one chunk of keys: keys around 2^31 interleaved over 3
+    shards (u32 order), a higher shard inside one gap of the lower, a
+    lower shard 50x denser than the higher, a chunk of one key (shard 0
+    empty), and 5 shards with an empty one."""
+    from metacache_tpu_torch.ops import merge_cuda
+    from metacache_tpu_torch.ops.merge import count_keys_reference
+    sets = count_case(np.random.default_rng(len(case)), case)
+    kbeg = np.concatenate([[0], np.cumsum([len(k) for k in sets])])
+    keys = torch.from_numpy(np.concatenate(sets).view(np.int32)).to(dev)
+    bounds = torch.from_numpy(np.stack([kbeg, kbeg])).to(dev)
+    count = torch.full((1,), 5, dtype=torch.int64, device=dev)
+    before = merge_cuda.count_launches
+    merge_cuda.count_keys(keys, bounds, count)
+    torch.cuda.synchronize()
+    assert merge_cuda.count_launches == before + 1
+    want = count_keys_reference(keys)
+    assert want == len(np.unique(np.concatenate(sets)))
+    assert int(count) == 5 + want
 
 
 def test_fused_engine_merges_on_the_card(dev, tmp_path):

@@ -11,7 +11,11 @@ and its plain version ops/merge.py), held on the CPU at toy size:
 - the streamed fused tables equal the host-merged database's tables
   tensor for tensor on the multi-shard worlds of test_torch_scale.py and
   test_torch_mesh_one_device.py;
-- the fused CLI query, merged in many chunks, writes the JAX CLI's bytes.
+- the fused CLI query, merged in many chunks, writes the JAX CLI's bytes;
+- the key count that sizes the fused table (merge_cuda.count_keys, summed
+  over the planned chunks) equals the key count of the JAX package's
+  FeatureTable.concat_shards for 1-4 shards, keys at and above 2^31,
+  disjoint and identical shards and an empty shard.
 
 Tolerance: exact equality throughout.
 """
@@ -21,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from metacache_tpu.db.feature_table import FeatureTable as JaxFeatureTable
 from metacache_tpu_torch import native
 from metacache_tpu_torch.db.feature_table import FeatureTable
 from metacache_tpu_torch.ops import merge_cuda
@@ -139,6 +144,78 @@ def test_empty_buckets_are_dropped(monkeypatch):
         monkeypatch.setattr(upload, "CHUNK", cap)
         got = upload.merged_feature_tables(upload.Stager(CPU), tables)
         assert_tables_equal(got, want)
+
+
+def count_key_sets(kind, P, rng):
+    """P sorted unique u32 key arrays of one count case: random keys over
+    the whole u32 range (about half at or above 2^31, many shared), keys
+    all at or above 2^31 and interleaved across the shards, disjoint
+    shards, identical shards, or random shards with the middle one
+    empty."""
+    def draw(lo, hi, n):
+        return np.unique(rng.integers(lo, hi, n, dtype=np.uint64)).astype(
+            np.uint32)
+    if kind == "random":
+        space = draw(0, 1 << 32, 400)
+        return [np.sort(rng.choice(space, 250, replace=False))
+                for _ in range(P)]
+    if kind == "high_keys":
+        return [draw((1 << 31) - 20, (1 << 31) + 400, 200)
+                for _ in range(P)]
+    if kind == "disjoint":
+        keys = draw(0, 1 << 32, 300 * P)
+        return [keys[s::P] for s in range(P)]
+    if kind == "identical":
+        return [draw(0, 1 << 32, 300)] * P
+    sets = [draw(0, 1 << 32, 300) for _ in range(P)]
+    sets[P // 2] = np.zeros(0, np.uint32)
+    return sets
+
+
+def tables_of(key_sets, rng, cls):
+    """A CSR table of class `cls` per key array: buckets of 1-4 random
+    (target, window) locations, sorted (no empty bucket: no build writes
+    one, the host merge drops it, the count does not)."""
+    out = []
+    for keys in key_sets:
+        sizes = rng.integers(1, 5, len(keys))
+        offsets = np.zeros(len(keys) + 1, np.int64)
+        np.cumsum(sizes, out=offsets[1:])
+        pair = rng.integers(0, 64, int(offsets[-1]))
+        pair = pair[np.lexsort((pair, np.repeat(np.arange(len(keys)),
+                                                sizes)))]
+        out.append(cls(keys=keys, offsets=offsets,
+                       loc_tgt=(pair // 8).astype(np.int32),
+                       loc_win=(pair % 8).astype(np.int32)))
+    return out
+
+
+COUNT_CASES = [pytest.param("random", P, id=f"P{P}") for P in (1, 2, 3, 4)] \
+    + [pytest.param(kind, P, id=kind) for kind, P in
+       (("high_keys", 3), ("disjoint", 3), ("identical", 4),
+        ("one_empty", 3))]
+
+
+@pytest.mark.parametrize("kind,P", COUNT_CASES)
+def test_chunked_key_count_equals_jax_concat(kind, P):
+    """The fused key count, summed over the planned chunks (cut every ~40
+    locations, so a shard's keys fall into many chunks), equals the key
+    count of the JAX package's concatenated shard table built from the
+    same arrays. Tolerance: exact."""
+    key_sets = count_key_sets(kind, P, np.random.default_rng(100 + P))
+    port = tables_of(key_sets, np.random.default_rng(7), FeatureTable)
+    jax_tables = tables_of(key_sets, np.random.default_rng(7),
+                           JaxFeatureTable)
+    want = len(JaxFeatureTable.concat_shards(jax_tables).keys)
+    assert want == len(np.unique(np.concatenate(key_sets)))
+    plan = upload.plan_chunks(port, 40)
+    assert len(plan) > 10
+    count = torch.zeros(1, dtype=torch.int64)
+    stager = upload.Stager(CPU)
+    for begin, end in plan:
+        chunk = upload._Chunk(stager, port, begin, end, locations=False)
+        merge_cuda.count_keys(chunk.keys, chunk.bounds, count)
+    assert int(count) == want
 
 
 @pytest.mark.parametrize("dtype", ["uint32", "int32", "int64"])
